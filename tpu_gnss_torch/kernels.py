@@ -1,0 +1,142 @@
+"""Build, load and launch the CUDA kernels in ``csrc/``.
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with :mod:`ctypes`.  The build
+runs at first use and lands in ``build/tpu_gnss_torch/`` beside the
+package (git-ignored), keyed on a hash of the sources and flags, so a
+fresh checkout builds exactly once and an edited source rebuilds.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tpu_gnss_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# per-block dynamic shared memory a kernel may take on Hopper (227 KB,
+# less a margin for the reductions' static arrays)
+SMEM_LIMIT = 227 * 1024 - 1024
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: every pointer and the stream as c_void_p (a bare Python
+# int would be passed as a 32-bit int and cut the pointer)
+_SIGNATURES = {
+    "fold_corr_reduce_launch": [_P] * 14 + [_I] * 8 + [_P],
+    "track_corr_launch": [_P] * 10 + [_I] * 6 + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+BUILD_SECONDS = None   # wall time of the build in this process (None: cached)
+BUILD_LOG = ""         # nvcc's output of that build
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(PATH and /usr/local/cuda/bin searched)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libtpu_gnss_torch_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` unless the hashed library already exists.
+
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
+    kernel) to a fresh build; its output is kept in :data:`BUILD_LOG`.
+    """
+    global BUILD_SECONDS, BUILD_LOG
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+           + ["-I", str(CSRC), "-o", tmp] + cus)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           + " ".join(cmd) + "\n" + BUILD_LOG)
+    os.replace(tmp, out)    # atomic: a concurrent loader never sees half
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise when a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+class LaunchCounter:
+    """Thread-safe count of kernel launches, by kernel name.
+
+    Each wrapper adds one where it launches its kernel and nowhere else,
+    so a run can show that the main path went through the kernels.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n: dict[str, int] = {}
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._n[name] = self._n.get(name, 0) + 1
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._n.get(name, 0)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n.clear()
+
+
+LAUNCHES = LaunchCounter()
