@@ -6,22 +6,40 @@ Phases (each prints its own lines; any failure exits non-zero and
 prints no result line):
 
 1. Card and software: ``nvidia-smi`` name and power limit, torch and
-   CUDA versions, and the seconds the kernel build took.
+   CUDA versions, the seconds the kernel build took and each kernel's
+   ``ptxas`` line.
 2. Each CUDA kernel against its plain PyTorch version on the card, at
-   the main path's shapes, then the median time of both (CUDA events).
+   the main path's shapes, then the median time of both (CUDA events):
+   ``fold_corr_reduce``, ``track_corr``, ``mix_packed`` (``torch.equal``
+   at the e2e, nottingham and LIVE rates) and ``corr_reduce`` (which no
+   path of either package calls: it is driven here as an op).
 3. The main path at the e2e geometry: a 20 s, 6-SV, 2.048 Msps 1-bit
    capture through ``Receiver(device="cuda").process_source``; it must
    give >=4 detections, >=4 ephemerides and a fix within 60 m.
 4. The main path at the ``nottingham`` geometry (4 s at 5.456 Msps,
    NF 16384): >=4 detections and those channels locked.
-5. Launch counters: every kernel launched in both main-path runs.
+5. Launch counters: every receiver kernel (``fold_corr_reduce``,
+   ``track_corr``, ``mix_packed``) launched in both main-path runs.
+6. The folded search API at the nottingham geometry (32 PRNs, 73
+   Doppler rows, NF 16384) on one 4 ms block of a 6-SV 1-bit scene:
+   ``acquire`` (grid engine), ``acquire(engine="mxu")``,
+   ``acquire_packed`` and ``detections_refined(power_grid())`` against
+   ``detections_refined_fast`` agree; then an 8-block non-coherent
+   search finds a weak SV.
+7. The batched capture scan: 64 blocks of random bits at the
+   ``synthetic`` preset (8.184 Msps, 49 Doppler rows, NF 16384) through
+   ``acquire_folded_batch_mxu``, its time and rate in
+   Msample*PRN*bin/s, and the grid engine ``acquire_folded_batch`` on
+   the first 8 blocks against it.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.  In the kernels line,
 ``max_abs_err`` is in the kernel's own output units and ``max_rel_err``
 is the error that the tolerance bounds: max |dpeak|/peak for
-``fold_corr_reduce``, max error / max|P| for ``track_corr``.  Exits non-zero without
-a card, and where the ``tpu_gnss_torch`` package is not beside it.
+``fold_corr_reduce`` and ``corr_reduce``, max error / max|P| for
+``track_corr``, 0 for the bit-exact ``mix_packed``; ``launches`` counts
+the run named in ``launch_run``.  Exits non-zero without a card, and
+where the ``tpu_gnss_torch`` package is not beside it.
 """
 
 from __future__ import annotations
@@ -98,28 +116,37 @@ def fold_case(fs: float, rows: int, n_acc: int, dev, seed: int):
     return (xr, xi, cr, ci), dict(period=period, nf=nf)
 
 
-def check_fold(fs, rows, n_acc, dev, label):
-    from tpu_gnss_torch.ops import mxu_corr as mc
-    args, kw = fold_case(fs, rows, n_acc, dev, seed=rows + n_acc)
-    pk, lg, tt = (a.cpu() for a in mc.fold_corr_reduce(*args, **kw))
+def compare_reduce(name, label, kernel, plain, desc):
+    """A peak/lag/total kernel against its plain version: lags equal,
+    peak and total within FOLD_TOL, then both times."""
+    pk, lg, tt = (a.cpu() for a in kernel())
     torch.cuda.synchronize()
-    ppk, plg, ptt = (a.cpu() for a in mc.fold_corr_reduce_plain(*args, **kw))
+    ppk, plg, ptt = (a.cpu() for a in plain())
     # peaks are |corr|^2 sums of order 1e13 here, so the absolute error
     # is large in these units; the relative error says whether parity held
     err = float((pk - ppk).abs().max())
     rel = float(((pk - ppk).abs() / ppk).max())
     if not torch.equal(lg, plg):
-        fail(f"fold_corr_reduce {label}: lags differ in "
-             f"{int((lg != plg).sum())} cells")
+        fail(f"{name} {label}: lags differ in {int((lg != plg).sum())} "
+             "cells")
     np.testing.assert_allclose(pk.numpy(), ppk.numpy(), **FOLD_TOL)
     np.testing.assert_allclose(tt.numpy(), ptt.numpy(), **FOLD_TOL)
-    ms = time_ms(lambda: mc.fold_corr_reduce(*args, **kw))
-    plain_ms = time_ms(lambda: mc.fold_corr_reduce_plain(*args, **kw))
-    log(f"fold_corr_reduce {label}: rows={rows} n_sv=32 nf={kw['nf']} "
-        f"n_acc={n_acc} lags equal, max |dpeak| {err:.4e} of peaks up to "
-        f"{float(ppk.max()):.4e}, max rel err {rel:.3e} (rtol "
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain)
+    log(f"{name} {label}: {desc} lags equal, max |dpeak| {err:.4e} of "
+        f"peaks up to {float(ppk.max()):.4e}, max rel err {rel:.3e} (rtol "
         f"{FOLD_TOL['rtol']}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms)
+
+
+def check_fold(fs, rows, n_acc, dev, label):
+    from tpu_gnss_torch.ops import mxu_corr as mc
+    args, kw = fold_case(fs, rows, n_acc, dev, seed=rows + n_acc)
+    return compare_reduce(
+        "fold_corr_reduce", label,
+        lambda: mc.fold_corr_reduce(*args, **kw),
+        lambda: mc.fold_corr_reduce_plain(*args, **kw),
+        f"rows={rows} n_sv=32 nf={kw['nf']} n_acc={n_acc}")
 
 
 def check_track(fs, dev, label):
@@ -177,6 +204,75 @@ def check_track(fs, dev, label):
                 plain_ms=plain_ms)
 
 
+def check_mix(fs, lo_rate, n_bits, sample0, dev, label):
+    """mix_packed against mix_packed_plain: equal bit for bit."""
+    from tpu_gnss_torch.ops import onebit
+    rng = np.random.default_rng(n_bits)
+    words = onebit.words_to_tensor(rng.integers(
+        0, 2 ** 32, -(-n_bits // 32), dtype=np.uint32), dev)
+    p0 = float((sample0 * float(lo_rate)) % 4.0)
+    kw = dict(n_bits=n_bits, lo_rate=lo_rate, phase0_quarters=p0)
+    got = onebit.mix_packed(words, **kw)
+    want = onebit.mix_packed_plain(words, **kw)
+    if not torch.equal(got, want):
+        fail(f"mix_packed {label}: {int((got != want).sum())} of {n_bits} "
+             "samples differ from the plain version")
+    ms = time_ms(lambda: onebit.mix_packed(words, **kw))
+    plain_ms = time_ms(lambda: onebit.mix_packed_plain(words, **kw))
+    log(f"mix_packed {label}: {n_bits} samples ({fs / 1e6:g} Msps), "
+        f"lo_rate {lo_rate:g}, phase0 {p0:.9g}: equal to the plain version, "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return dict(max_abs_err=0.0, max_rel_err=0.0, ms=ms, plain_ms=plain_ms)
+
+
+def spectra_case(fs: float, rows: int, n_acc: int, dev, seed: int):
+    """Conjugated data spectra [rows, n_acc, n1, n2] of fold_case's blocks
+    and the [n_sv, n1, n2] wrapped code planes, for corr_reduce."""
+    from tpu_gnss_torch.acquire.folded import period_replicas_np
+    from tpu_gnss_torch.ops import mxu_corr as mc
+    (xr, xi, _, _), kw = fold_case(fs, rows, n_acc, dev, seed)
+    period, nf = kw["period"], kw["nf"]
+    n1, n2 = mc.split_nf(nf)
+    x = torch.complex(xr, xi).reshape(rows, n_acc, -1)
+    g = torch.fft.fft(x, n=nf, dim=-1).conj().reshape(rows, n_acc, n1, n2)
+    reps = period_replicas_np(fs, tuple(range(1, 33)))
+    cr, ci = mc.wrap_code_planes(
+        np.fft.fft(reps.astype(np.float64), n=nf, axis=-1), period)
+    return ((g.real.contiguous(), g.imag.contiguous(),
+             torch.from_numpy(cr).to(dev), torch.from_numpy(ci).to(dev)),
+            dict(period=period))
+
+
+def check_corr_reduce(fs, rows, n_acc, dev, label):
+    from tpu_gnss_torch.ops import mxu_corr as mc
+    args, kw = spectra_case(fs, rows, n_acc, dev, seed=2 * rows + n_acc)
+    n1, n2 = args[0].shape[-2:]
+    smem = mc._stage_smem(n1, n2, min(n2, -(-kw["period"] // n1)))
+    return compare_reduce(
+        "corr_reduce", label,
+        lambda: mc.corr_reduce(*args, **kw),
+        lambda: mc.corr_reduce_plain(*args, **kw),
+        f"rows={rows} n_sv=32 nf={n1 * n2} n_acc={n_acc} dynamic smem "
+        f"{smem} B,")
+
+
+def drive_corr_reduce(dev) -> int:
+    """corr_reduce has no caller in either package: drive it once as an
+    op at the e2e shape and count its launches."""
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.ops import mxu_corr as mc
+    args, kw = spectra_case(2.048e6, 41, 1, dev, seed=7)
+    kernels.LAUNCHES.reset()
+    pk, lg, tt = mc.corr_reduce(*args, **kw)
+    torch.cuda.synchronize()
+    n = kernels.LAUNCHES.get("corr_reduce")
+    if n <= 0 or not (torch.isfinite(pk).all() and torch.isfinite(tt).all()
+                      and bool((lg >= 0).all())
+                      and bool((lg < kw["period"]).all())):
+        fail("corr_reduce op run: no launch or bad output")
+    return n
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the main path
 # ---------------------------------------------------------------------------
@@ -201,10 +297,154 @@ def run_receiver(cfg, duration, tmpdir, name):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES.get(k)
-                for k in ("fold_corr_reduce", "track_corr")}
+                for k in ("fold_corr_reduce", "track_corr", "mix_packed")}
     log(f"{name}: wall {wall:.3f} s for {duration:g} s of signal, "
         f"realtime factor {duration / wall:.2f}, launches {launches}")
     return res, rx, wall, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the folded search API and the batched capture scan
+# ---------------------------------------------------------------------------
+
+# 6 SVs of the folded-search scene: (prn, Doppler Hz, code phase chips,
+# amplitude)
+SEARCH_SVS = ((3, 1840.0, 303.4, 1.0), (9, -2460.0, 777.7, 0.8),
+              (14, 420.0, 12.3, 0.7), (19, -3810.0, 1001.9, 0.6),
+              (23, 4620.0, 512.5, 0.5), (31, -870.0, 641.1, 0.5))
+WEAK_SV = (22, 800.0, 50.0, 0.04)     # needs the 8-block sum
+
+
+def bits_scene(cfg, svs, n_samples, seed):
+    """1-bit IF samples of ``svs`` at unit complex noise."""
+    from tpu_gnss.signal import synth
+    iq = synth.synth_baseband(
+        [synth.SvSignal(prn=p, doppler_hz=d, code_phase_chips=c,
+                        amplitude=a) for p, d, c, a in svs],
+        cfg.fs, n_samples, noise_std=1.0, seed=seed)
+    return synth.baseband_to_1bit_if(iq, cfg.fc, cfg.fs)
+
+
+def folded_search(cfg, device, weak_k: int = 8):
+    """Phase 6: the four folded-search forms agree, and an n_noncoherent
+    search finds a weak SV.  Returns the kernel launch counts of the
+    four-way run."""
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.acquire.folded import FoldedSearcher
+    s = FoldedSearcher(cfg, device=device)
+    log(f"folded search: fs {cfg.fs / 1e6:g} Msps, {len(cfg.prns)} PRNs, "
+        f"{len(s.dops_hz)} Doppler rows, NF {s.nf}, block {s.block_len}")
+    want = sorted(p for p, *_ in SEARCH_SVS)
+    bits = bits_scene(cfg, SEARCH_SVS, s.block_len, seed=11)
+    kernels.LAUNCHES.reset()
+    sync = torch.cuda.synchronize if s.device.type == "cuda" else lambda: 0
+    sync()
+    t0 = time.perf_counter()
+    res = {"acquire": s.acquire(bits=bits),
+           "acquire mxu": s.acquire(bits=bits, engine="mxu"),
+           "acquire_packed": s.acquire_packed(bits)}
+    refined = s.detections_refined(s.power_grid(bits=bits))
+    fast = s.detections_refined_fast(bits=bits)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES.get(k)
+                for k in ("mix_packed", "fold_corr_reduce")}
+    dets = {k: s.detections(r) for k, r in res.items()}
+    for name, d in list(dets.items()) + [("detections_refined", refined),
+                                         ("detections_refined_fast", fast)]:
+        prns = sorted(x["prn"] for x in d)
+        log(f"  {name}: PRNs {prns}, SNR "
+            + " ".join(f"{x['snr']:.1f}" for x in d))
+        if prns != want:
+            fail(f"folded search {name}: PRNs {prns}, want {want}")
+    base = {x["prn"]: x for x in dets["acquire"]}
+    for name in ("acquire mxu", "acquire_packed"):
+        for x in dets[name]:
+            b = base[x["prn"]]
+            if (x["ca_shift"], x["doppler_hz"]) != (b["ca_shift"],
+                                                    b["doppler_hz"]):
+                fail(f"folded search {name}: PRN {x['prn']} at "
+                     f"({x['ca_shift']}, {x['doppler_hz']}), grid engine "
+                     f"({b['ca_shift']}, {b['doppler_hz']})")
+    np.testing.assert_allclose(res["acquire_packed"].snr.cpu().numpy(),
+                               res["acquire"].snr.cpu().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(res["acquire mxu"].snr.cpu().numpy(),
+                               res["acquire"].snr.cpu().numpy(), rtol=0.03)
+    p = s.period
+    for w, g in zip(refined, fast):
+        dca = (g["ca_shift"] - w["ca_shift"] + p / 2) % p - p / 2
+        if abs(g["doppler_hz"] - w["doppler_hz"]) >= 1.0 or abs(dca) >= 0.05:
+            fail(f"folded search: refined PRN {w['prn']} differs: grid "
+                 f"({w['doppler_hz']}, {w['ca_shift']}), fast "
+                 f"({g['doppler_hz']}, {g['ca_shift']})")
+    log(f"folded search: the four forms agree ({wall:.3f} s for all five "
+        f"calls, first use included), launches {launches}")
+    for k, n in launches.items():
+        if n <= 0 and s.device.type == "cuda":
+            fail(f"folded search: kernel {k} was never launched")
+    # weak SV: 8 blocks summed non-coherently
+    wbits = bits_scene(cfg, (WEAK_SV,), weak_k * s.block_len, seed=7)
+    row = list(cfg.prns).index(WEAK_SV[0])
+    one = s.acquire(bits=wbits)
+    if WEAK_SV[0] in [x["prn"] for x in s.detections(one)]:
+        fail(f"folded search: weak PRN {WEAK_SV[0]} already found in one "
+             "block: the scene does not test the non-coherent sum")
+    for engine in ("xla", "mxu"):
+        acc = s.acquire(bits=wbits, n_noncoherent=weak_k, engine=engine)
+        d = s.detections(acc, n_noncoherent=weak_k)
+        log(f"  weak PRN {WEAK_SV[0]} ({engine}): SNR "
+            f"{float(one.snr[row]):.2f} with 1 block, "
+            f"{float(acc.snr[row]):.2f} with {weak_k}; detections "
+            f"{[(x['prn'], x['doppler_hz']) for x in d]}")
+        if [x["prn"] for x in d] != [WEAK_SV[0]] or \
+                abs(d[0]["doppler_hz"] - WEAK_SV[1]) > 130.0:
+            fail(f"folded search: weak PRN {WEAK_SV[0]} not found with "
+                 f"{weak_k} blocks ({engine})")
+    return launches
+
+
+def batched_scan(cfg, device, n_blocks: int = 64, n_grid: int = 8,
+                 reps: int = 3):
+    """Phase 7: bench.py's batched capture scan through the kernel
+    engine, timed, and the grid engine on the first blocks against it."""
+    from tpu_gnss_torch.acquire import folded as F
+    s = F.FoldedSearcher(cfg, device=device)
+    rng = np.random.default_rng(0)
+    blocks = torch.from_numpy(rng.integers(
+        0, 2, (n_blocks, s.block_len), dtype=np.uint8)).to(s.device)
+    cw_r, cw_i = s.mxu_code_planes()
+    kw = dict(fs=cfg.fs, lo_rate=cfg.lo_rate, n_coherent=s.n_coherent,
+              from_bits=True, period=s.period)
+    scan = lambda: F.acquire_folded_batch_mxu(blocks, cw_r, cw_i,
+                                              s.dops_hz, nf=s.nf, **kw)
+    grid = lambda: F.acquire_folded_batch(blocks[:n_grid], s.code_ffts_p,
+                                          s.dops_hz, **kw)
+    res, ref = scan(), grid()
+    n_sv, n_dop = len(cfg.prns), len(s.dops_hz)
+    snr = res.snr.cpu().numpy()
+    if snr.shape != (n_blocks, n_sv) or not np.isfinite(snr).all() \
+            or not snr.max() < cfg.snr_threshold:
+        fail(f"batched scan: SNR shape {snr.shape}, max {snr.max()} "
+             "(noise must stay under the threshold)")
+    same = ((res.ca_shift[:n_grid] == ref.ca_shift)
+            & (res.doppler_hz[:n_grid] == ref.doppler_hz)).cpu().numpy()
+    if same.sum() < 0.97 * same.size:
+        fail(f"batched scan: kernel and grid engine agree on only "
+             f"{int(same.sum())} of {same.size} (block, SV) cells")
+    np.testing.assert_allclose(snr[:n_grid][same],
+                               ref.snr.cpu().numpy()[same], rtol=0.03)
+    if s.device.type != "cuda":
+        return None
+    ms = time_ms(scan, reps=reps, warm=1)
+    grid_ms = time_ms(grid, reps=reps, warm=1)
+    rate = n_sv * n_dop * s.block_len * n_blocks / (ms * 1e-3) / 1e6
+    grid_rate = n_sv * n_dop * s.block_len * n_grid / (grid_ms * 1e-3) / 1e6
+    log(f"batched scan: {n_blocks} blocks x {s.block_len} samples, "
+        f"{n_sv} PRNs x {n_dop} bins, NF {s.nf}; kernel engine "
+        f"{ms:.1f} ms = {rate:.1f} Msample*PRN*bin/s; grid engine "
+        f"{n_grid} blocks {grid_ms:.1f} ms = {grid_rate:.1f} "
+        f"Msample*PRN*bin/s; {int(same.sum())}/{same.size} cells agree")
+    return dict(ms=ms, rate=rate, grid_ms=grid_ms, grid_rate=grid_rate)
 
 
 def main() -> int:
@@ -213,7 +453,7 @@ def main() -> int:
               "script needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tpu_gnss_torch import ReceiverConfig, kernels
+    from tpu_gnss_torch import PRESETS, ReceiverConfig, kernels
     from tpu_gnss_torch.track.quality import pll_lock_metric
 
     # --- phase 1: card and software -------------------------------------
@@ -243,6 +483,15 @@ def main() -> int:
     track_e2e = check_track(2.048e6, dev, "e2e")
     check_track(5.456e6, dev, "nottingham")
     check_track(12.5e6, dev, "odd-n1")
+    mix_e2e = check_mix(2.048e6, 1.0, 2_048_000, 0, dev, "e2e")
+    check_mix(5.456e6, 3.0, 5_456_000, 0, dev, "nottingham")
+    live = PRESETS["live"]
+    check_mix(live.fs, live.lo_rate, 10_000_000 - 7, 1_000_000_007, dev,
+              "live")
+    cr_e2e = check_corr_reduce(2.048e6, 41, 1, dev, "e2e")
+    check_corr_reduce(2.048e6, 41, 8, dev, "e2e-weak")
+    check_corr_reduce(5.456e6, 73, 1, dev, "nottingham")
+    cr_launches = drive_corr_reduce(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         # --- phase 3: main path, e2e geometry ----------------------------
@@ -283,17 +532,39 @@ def main() -> int:
         for k, n in counts.items():
             if n <= 0:
                 fail(f"{run}: kernel {k} was never launched on the path")
-    log("launch counters: every kernel launched in both main-path runs")
+    log("launch counters: every receiver kernel launched in both "
+        "main-path runs")
 
+    # --- phase 6: the folded search API at the nottingham geometry ------
+    folded_search(cfg_n, dev)
+    # --- phase 7: the batched capture scan --------------------------------
+    scan = batched_scan(PRESETS["synthetic"], dev)
+    log(f"batched scan rate: {scan['rate']:.1f} Msample*PRN*bin/s "
+        f"({scan['ms']:.1f} ms for 64 blocks) on {smi}")
+
+    e2e_run = "e2e receiver run (phase 3)"
     kern = [
         dict(name="fold_corr_reduce", route="cuda",
              source="tpu_gnss_torch/csrc/fold_corr_reduce.cu",
              replaces="tpu_gnss/ops/mxu_corr.py:377",
-             launches=launches["fold_corr_reduce"], **fold_e2e),
+             launches=launches["fold_corr_reduce"], launch_run=e2e_run,
+             **fold_e2e),
         dict(name="track_corr", route="cuda",
              source="tpu_gnss_torch/csrc/track_corr.cu",
              replaces="tpu_gnss/ops/mxu_track.py:376",
-             launches=launches["track_corr"], **track_e2e),
+             launches=launches["track_corr"], launch_run=e2e_run,
+             **track_e2e),
+        dict(name="mix_packed", route="cuda",
+             source="tpu_gnss_torch/csrc/mix_packed.cu",
+             replaces="tpu_gnss/ops/onebit.py:175",
+             launches=launches["mix_packed"], launch_run=e2e_run,
+             **mix_e2e),
+        dict(name="corr_reduce", route="cuda",
+             source="tpu_gnss_torch/csrc/corr_reduce.cu",
+             replaces="tpu_gnss/ops/mxu_corr.py:430",
+             launches=cr_launches,
+             launch_run="op call at the e2e shape (no caller in either "
+                        "package)", **cr_e2e),
     ]
     log(smi)                  # as nvidia-smi gives it
     print(json.dumps({"kernels": kern}), flush=True)

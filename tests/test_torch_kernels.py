@@ -14,33 +14,46 @@ import pytest
 import torch
 
 from tpu_gnss_torch import kernels
-from tpu_gnss_torch.ops import mxu_corr, mxu_track
+from tpu_gnss_torch.ops import mxu_corr, mxu_track, onebit
 
 
-def test_wrappers_reject_other_devices():
+def _calls(device):
+    """One call of each kernel wrapper at a small shape on ``device``."""
     nf = period = 2048
     n1, n2 = mxu_corr.split_nf(nf)
     u_rows = mxu_corr.four_step_np(nf, period)["u_rows"]
-    x = torch.zeros(1, 1, u_rows, n1, device="meta")
-    cw = torch.zeros(n2, n1, device="meta")
-    with pytest.raises(ValueError):
-        mxu_corr.fold_corr_reduce(x, x, cw, cw, period=period, nf=nf)
-    blk = torch.zeros(1, u_rows, n1, device="meta")
-    par = torch.zeros(1, 1, 5, device="meta")
-    with pytest.raises(ValueError):
-        mxu_track.track_corr(blk, blk, par, cw, cw, period=period, nf=nf)
+    z = lambda *shape: torch.zeros(*shape, device=device)
+    return {
+        "fold_corr_reduce": lambda: mxu_corr.fold_corr_reduce(
+            z(2, 1, u_rows, n1), z(2, 1, u_rows, n1), z(n2, n1), z(n2, n1),
+            period=period, nf=nf),
+        "track_corr": lambda: mxu_track.track_corr(
+            z(1, u_rows, n1), z(1, u_rows, n1), z(1, 1, 5), z(n2, n1),
+            z(n2, n1), period=period, nf=nf),
+        "mix_packed": lambda: onebit.mix_packed(
+            torch.zeros(4, dtype=torch.int32, device=device), n_bits=100,
+            lo_rate=1.0),
+        "corr_reduce": lambda: mxu_corr.corr_reduce(
+            z(2, n1, n2), z(2, n1, n2), z(1, n1, n2), z(1, n1, n2),
+            period=period),
+    }
 
 
-def test_cpu_tensors_never_touch_the_library():
+KERNELS = ["fold_corr_reduce", "track_corr", "mix_packed", "corr_reduce"]
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_wrappers_reject_other_devices(name):
+    with pytest.raises(ValueError):
+        _calls("meta")[name]()
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_cpu_tensors_never_touch_the_library(name):
     """The plain path runs and counts no launch on CPU tensors."""
     kernels.LAUNCHES.reset()
-    nf = period = 2048
-    n1, n2 = mxu_corr.split_nf(nf)
-    u_rows = mxu_corr.four_step_np(nf, period)["u_rows"]
-    x = torch.randn(2, 1, u_rows, n1)
-    cw = torch.randn(n2, n1)
-    mxu_corr.fold_corr_reduce(x, x, cw, cw, period=period, nf=nf)
-    assert kernels.LAUNCHES.get("fold_corr_reduce") == 0
+    _calls("cpu")[name]()
+    assert kernels.LAUNCHES.get(name) == 0
     assert kernels._lib is None
 
 
@@ -50,7 +63,8 @@ def test_library_path_hashes_sources():
     assert p.name.startswith("libtpu_gnss_torch_") and p.suffix == ".so"
     assert p == kernels.library_path()
     names = {s.name for s in kernels._sources()}
-    assert {"fold_corr_reduce.cu", "track_corr.cu", "common.cuh"} <= names
+    assert {"fold_corr_reduce.cu", "track_corr.cu", "mix_packed.cu",
+            "corr_reduce.cu", "common.cuh"} <= names
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

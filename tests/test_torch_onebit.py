@@ -1,7 +1,11 @@
 """Port's packed 1-bit frontend vs the JAX one, bit for bit.
 
-Mirrors tests/test_onebit.py::test_mix_packed_matches_mix_baseband and
-::test_mix_packed_phase_continuity.
+Mirrors tests/test_onebit.py::test_mix_packed_matches_mix_baseband,
+::test_mix_packed_phase_continuity and ::test_mix_packed_pallas_interpret.
+Every comparison is exact (``assert_array_equal``): the outputs are ±1
+and both packages compute the LO phase index with the same float32
+operations.  Against the Pallas kernel (interpret mode) only at lo_rate
+3.0 and 1.0, where its own per-level range reduction is exact too.
 """
 
 import jax.numpy as jnp
@@ -10,7 +14,8 @@ import pytest
 import torch
 
 from tpu_gnss.acquire.search import mix_baseband as j_mix_baseband
-from tpu_gnss.config import NOTTINGHAM, SYNTHETIC, ReceiverConfig
+from tpu_gnss.config import (LIVE, NOTTINGHAM, RTLSDR_REPLAY, SYNTHETIC,
+                             ReceiverConfig)
 from tpu_gnss.io import loaders
 from tpu_gnss.ops import onebit as jo
 from tpu_gnss_torch.acquire.search import mix_baseband
@@ -66,3 +71,48 @@ def test_mix_packed_phase_continuity(rng):
     got = np.concatenate(parts_t)
     np.testing.assert_array_equal(got, np.concatenate(parts_j))
     np.testing.assert_allclose(got, whole, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 4096 + 17])
+def test_pack_bits_to_words_matches_jax(n, rng):
+    bits = rng.integers(0, 2, n).astype(np.uint8)
+    got = to.pack_bits_to_words(bits)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, jo.pack_bits_to_words(bits))
+
+
+@pytest.mark.parametrize("cfg", [NOTTINGHAM, E2E], ids=["nottingham", "e2e"])
+def test_mix_packed_matches_pallas(cfg, rng):
+    """LSB-first words through the port == the TPU kernel's bit planes
+    through mix_packed_pallas, on the same bits."""
+    n = 4096 * 16                     # 2 grid blocks of 8 word rows
+    bits = rng.integers(0, 2, n).astype(np.uint8)
+    want = np.asarray(jo.mix_packed_pallas(
+        jnp.asarray(jo.pack_bits_planes(bits)), n_bits=n,
+        lo_rate=cfg.lo_rate, interpret=True))
+    got = to.mix_packed(to.words_to_tensor(to.pack_bits_to_words(bits),
+                                           "cpu"),
+                        n_bits=n, lo_rate=cfg.lo_rate).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("cfg", [LIVE, RTLSDR_REPLAY], ids=["live", "rtlsdr"])
+def test_mix_packed_ragged_with_phase0(cfg, rng):
+    """Non-integer LO rates, a phase0 from a sample offset near 1e9, and
+    n_bits that is not a multiple of 32: equal to the JAX XLA mix."""
+    n = 40000 - 13
+    bits = rng.integers(0, 2, n).astype(np.uint8)
+    p0 = (1_000_000_007 * float(cfg.lo_rate)) % 4.0
+    assert p0 > 0.0
+    words = to.pack_bits_to_words(bits)
+    want = np.asarray(jo.mix_packed(jnp.asarray(words), n_bits=n,
+                                    lo_rate=cfg.lo_rate,
+                                    phase0_quarters=jnp.float32(p0)))
+    tw = to.words_to_tensor(words, "cpu")
+    got = to.mix_packed(tw, n_bits=n, lo_rate=cfg.lo_rate,
+                        phase0_quarters=p0).numpy()
+    assert got.shape == (n,)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        to.mix_packed_plain(tw, n_bits=n, lo_rate=cfg.lo_rate,
+                            phase0_quarters=p0).numpy(), want)

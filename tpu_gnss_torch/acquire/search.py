@@ -36,13 +36,16 @@ def mix_baseband(bits: torch.Tensor, lo_rate: float,
     return torch.complex(s * itab[p], s * qtab[p])
 
 
+PHASE_SPLIT = 4096   # K of _phase_mod4; csrc/mix_packed.cu uses the same
+
+
 def _phase_mod4(i: torch.Tensor, lo_rate: float) -> torch.Tensor:
     """((i * lo_rate) mod 4) with float32-safe range reduction.
 
     Splits i = q*K + r (K = 4096) so each product stays small enough that
     float32 keeps the fractional phase accurate over multi-second blocks.
     """
-    K = 4096
+    K = PHASE_SPLIT
     q, r = i // K, i % K
     part1 = (q.to(torch.float32)
              * torch.tensor((K * lo_rate) % 4.0, dtype=torch.float32)) % 4.0

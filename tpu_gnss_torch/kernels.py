@@ -1,7 +1,8 @@
 """Build, load and launch the CUDA kernels in ``csrc/``.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with :mod:`ctypes`.  The build
+The sources are compiled by ``nvcc`` for ``sm_90a`` (one process per
+``.cu`` file, all started together) and linked into one shared library
+with a plain C interface, loaded with :mod:`ctypes`.  The build
 runs at first use and lands in ``build/tpu_gnss_torch/`` beside the
 package (git-ignored), keyed on a hash of the sources and flags, so a
 fresh checkout builds exactly once and an edited source rebuilds.
@@ -34,11 +35,15 @@ SMEM_LIMIT = 227 * 1024 - 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a bare Python
-# int would be passed as a 32-bit int and cut the pointer)
+# int would be passed as a 32-bit int and cut the pointer), every float
+# as c_float (an undeclared Python float would be passed as a double)
 _SIGNATURES = {
     "fold_corr_reduce_launch": [_P] * 14 + [_I] * 8 + [_P],
     "track_corr_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "mix_packed_launch": [_P] * 2 + [_I] + [_F] * 3 + [_I] * 2 + [_P],
+    "corr_reduce_launch": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -78,20 +83,38 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-           + ["-I", str(CSRC), "-o", tmp] + cus)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # one nvcc per source, all started together, then one link
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for cu in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, cu.stem + ".o")
+            cmd = ([nvcc] + compile_flags
+                   + (["-Xptxas", "-v"] if verbose else [])
+                   + ["-I", str(CSRC), "-c", "-o", obj, str(cu)])
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd))
+        BUILD_LOG = "".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n"
+                               + BUILD_LOG)
+        so = os.path.join(tmp, "lib.so")
+        cmd = [nvcc] + NVCC_FLAGS + ["-o", so] + [obj for _, obj, _ in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               + " ".join(cmd) + "\n" + BUILD_LOG)
+        os.replace(so, out)  # atomic: a concurrent loader never sees half
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           + " ".join(cmd) + "\n" + BUILD_LOG)
-    os.replace(tmp, out)    # atomic: a concurrent loader never sees half
     return out
 
 

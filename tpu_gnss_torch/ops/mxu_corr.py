@@ -1,21 +1,23 @@
-"""Fused DFT-correlate-reduce for folded acquisition (kernel 1).
+"""DFT-correlate-reduce for folded acquisition (kernels 1 and 4).
 
 Counterpart of :mod:`tpu_gnss.ops.mxu_corr`.  ``NF = n1*n2`` is factored
 for the four-step DFT
 
     corr[n1*q + t] = (E1 @ M * tw) @ E2   at cell [t, q]
 
-and :func:`fold_corr_reduce` reduces each (Doppler row, SV) pair to the
-three numbers acquisition needs — peak power, first-max lag and total
-power over the P valid lags — without materializing the power grid.
+and each (Doppler row, SV) pair is reduced to the three numbers
+acquisition needs — peak power, first-max lag and total power over the P
+valid lags — without materializing the power grid.
 
-* On a CUDA tensor it launches the hand-written kernel in
-  ``csrc/fold_corr_reduce.cu``.
-* On a CPU tensor it runs :func:`fold_corr_reduce_plain`, the same
-  arithmetic as float32 PyTorch matmuls over the same tables.
+* :func:`fold_corr_reduce` (kernel 1) takes the wiped+folded time blocks
+  and runs the forward DFT too; ``csrc/fold_corr_reduce.cu``.
+* :func:`corr_reduce` (kernel 4, the reference's "v1") takes precomputed
+  conjugated data spectra; ``csrc/corr_reduce.cu``.
 
-Unlike the TPU kernel's bf16 planes, the port keeps the code planes and
-all products in float32.
+On a CUDA tensor each launches its hand-written kernel; on a CPU tensor
+it runs its ``*_plain`` version, the same arithmetic as float32 PyTorch
+matmuls over the same tables.  Unlike the TPU kernels' bf16 planes, the
+port keeps the code planes and all products in float32.
 """
 
 from __future__ import annotations
@@ -53,6 +55,34 @@ def wrap_spectrum(c: np.ndarray, period: int) -> np.ndarray:
         k = np.arange(nf)
         c = c * (1.0 + np.exp(-2j * np.pi * k * (period / nf)))
     return c
+
+
+@functools.lru_cache(maxsize=16)
+def idft_tables(nf: int, device: str) -> tuple:
+    """``(e1 [n1, n1], tw [n1, n2], e2 [n2, n2])`` inverse four-step DFT
+    tables as contiguous complex64 tensors on ``device``, built in float64
+    (tpu_gnss/ops/mxu_corr.py:76-90, kept in float32 here)."""
+    n1, n2 = split_nf(nf)
+    t = np.arange(n1)
+    s = np.arange(n2)
+    dev = torch.device(device)
+    c64 = lambda a: torch.from_numpy(a.astype(np.complex64)).to(dev)
+    return (c64(np.exp(2j * np.pi * np.outer(t, t) / n1)),
+            c64(np.exp(2j * np.pi * np.outer(t, s) / nf)),
+            c64(np.exp(2j * np.pi * np.outer(s, s) / n2)))
+
+
+def wrap_code_planes(code_ffts_p: np.ndarray, period: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Code spectra -> ``[n_sv, n1, n2]`` float32 (real, imag) planes with
+    the circular wrap folded in (tpu_gnss/ops/mxu_corr.py:105-114, kept in
+    float32 here)."""
+    c = wrap_spectrum(np.asarray(code_ffts_p), period)
+    n_sv, nf = c.shape
+    n1, n2 = split_nf(nf)
+    c = c.reshape(n_sv, n1, n2)
+    return (np.ascontiguousarray(c.real, np.float32),
+            np.ascontiguousarray(c.imag, np.float32))
 
 
 @functools.lru_cache(maxsize=8)
@@ -143,8 +173,15 @@ def fold_corr_reduce_plain(x_r: torch.Tensor, x_i: torch.Tensor,
         a = (m @ e1) * tw                             # [rows, sv, k2, t]
         r = a.transpose(-1, -2) @ e2                  # [rows, sv, t, q]
         pwr = pwr + r.real * r.real + r.imag * r.imag
-    t = torch.arange(n1, device=x_r.device)[:, None]
-    q = torch.arange(q_cols, device=x_r.device)[None, :]
+    return _reduce_lags(pwr, period)
+
+
+def _reduce_lags(pwr: torch.Tensor, period: int):
+    """``[rows, n_sv, t, q]`` powers (lag n1*q + t) -> peak, smallest lag
+    among the peak cells, and total over the lags < period."""
+    rows, n_sv, n1, q_cols = pwr.shape
+    t = torch.arange(n1, device=pwr.device)[:, None]
+    q = torch.arange(q_cols, device=pwr.device)[None, :]
     lag_mat = (n1 * q + t).reshape(-1)
     valid = lag_mat < period
     pm = torch.where(valid, pwr.reshape(rows, n_sv, -1), 0.0)
@@ -152,6 +189,22 @@ def fold_corr_reduce_plain(x_r: torch.Tensor, x_i: torch.Tensor,
     big = torch.iinfo(torch.int64).max
     lag = torch.where(pm >= pk[..., None], lag_mat, big).amin(-1)
     return pk, lag.to(torch.int32), pm.sum(-1)
+
+
+def _check_planes(name: str, dev, **planes) -> None:
+    for key, a in planes.items():
+        if a.device != dev or a.dtype != torch.float32 \
+                or not a.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous float32 "
+                             f"tensor on {dev}")
+
+
+def _stage_smem(n1: int, n2: int, q_cols: int) -> int:
+    """Shared memory of the inverse stage that both kernels share: the
+    ``[n2, n1]`` stage-1 buffer, ``stage`` staged product rows and the
+    ``[q_cols, n1]`` |.|² accumulator (``stage`` as in the launchers)."""
+    stage = max(1, min(n2, 2048 // n1))
+    return 8 * (n1 * n2 + stage * n1) + 4 * n1 * q_cols
 
 
 def fold_corr_reduce(x_r: torch.Tensor, x_i: torch.Tensor,
@@ -179,19 +232,14 @@ def fold_corr_reduce(x_r: torch.Tensor, x_i: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"fold_corr_reduce: unsupported device {dev}")
     rows, n_acc, n_sv, n1, n2 = _shapes(x_r, cwT_r, period, nf)
-    for name, a in (("x_r", x_r), ("x_i", x_i), ("cwT_r", cwT_r),
-                    ("cwT_i", cwT_i)):
-        if a.device != dev or a.dtype != torch.float32 \
-                or not a.is_contiguous():
-            raise ValueError(f"fold_corr_reduce: {name} must be a "
-                             f"contiguous float32 tensor on {dev}")
+    _check_planes("fold_corr_reduce", dev, x_r=x_r, x_i=x_i, cwT_r=cwT_r,
+                  cwT_i=cwT_i)
     if x_i.shape != x_r.shape or cwT_i.shape != cwT_r.shape:
         raise ValueError("fold_corr_reduce: real/imag plane shapes differ")
     u_rows, q_cols, f2, wt, f1, e1, tw, e2 = fused_tables(nf, period,
                                                           str(dev))
-    stage = max(1, min(n2, 2048 // n1))     # as in the launcher
     if max(8 * (u_rows * n1 + nf),
-           8 * (nf + stage * n1) + 4 * n1 * q_cols) > kernels.SMEM_LIMIT:
+           _stage_smem(n1, n2, q_cols)) > kernels.SMEM_LIMIT:
         raise ValueError(f"fold_corr_reduce: NF={nf} needs more shared "
                          "memory than a Hopper block has")
     scratch = torch.empty(rows, n_acc, nf, dtype=torch.complex64, device=dev)
@@ -207,4 +255,88 @@ def fold_corr_reduce(x_r: torch.Tensor, x_i: torch.Tensor,
             stream)
     kernels.check("fold_corr_reduce", err)
     kernels.LAUNCHES.add("fold_corr_reduce")
+    return peak, lag, tot
+
+
+def _spectra_shapes(g_r, cw_r, period: int):
+    """Validate ``[rows, (n_acc,) n1, n2]`` spectra and ``[n_sv, n1, n2]``
+    code planes; return the 4-D view and the sizes."""
+    if g_r.ndim == 3:
+        g_r = g_r[:, None]
+    if g_r.ndim != 4:
+        raise ValueError("spectra must be [rows, (n_acc,) n1, n2]")
+    rows, n_acc, n1, n2 = g_r.shape
+    if split_nf(n1 * n2) != (n1, n2):
+        raise ValueError(f"spectra [.., {n1}, {n2}] are not the split "
+                         f"{split_nf(n1 * n2)} of NF={n1 * n2}")
+    if cw_r.ndim != 3 or tuple(cw_r.shape[1:]) != (n1, n2):
+        raise ValueError(f"code planes must be [n_sv, {n1}, {n2}], "
+                         f"got {tuple(cw_r.shape)}")
+    if not 0 < period <= n1 * n2:
+        raise ValueError(f"period {period} outside (0, NF={n1 * n2}]")
+    return rows, n_acc, cw_r.shape[0], n1, n2, min(n2, -(-period // n1))
+
+
+def corr_reduce_plain(g_r: torch.Tensor, g_i: torch.Tensor,
+                      cw_r: torch.Tensor, cw_i: torch.Tensor, *,
+                      period: int):
+    """Plain PyTorch version of :func:`corr_reduce` (float32)."""
+    rows, n_acc, n_sv, n1, n2, q_cols = _spectra_shapes(g_r, cw_r, period)
+    e1, tw, e2 = idft_tables(n1 * n2, str(g_r.device))
+    g = torch.complex(g_r, g_i).reshape(rows, n_acc, n1, n2)
+    cw = torch.complex(cw_r, cw_i)
+    e2q = e2[:, :q_cols]
+    pwr = torch.zeros(rows, n_sv, n1, q_cols, dtype=torch.float32,
+                      device=g_r.device)
+    for b in range(n_acc):
+        m = cw[None] * g[:, b, None]                  # [rows, sv, k1, k2]
+        r = ((e1 @ m) * tw) @ e2q                     # [rows, sv, t, q]
+        pwr = pwr + r.real * r.real + r.imag * r.imag
+    return _reduce_lags(pwr, period)
+
+
+def corr_reduce(g_r: torch.Tensor, g_i: torch.Tensor, cw_r: torch.Tensor,
+                cw_i: torch.Tensor, *, period: int):
+    """Reduced circular correlation for every (row, SV) pair.
+
+    Args:
+      g_r/g_i: ``[rows, n1, n2]`` (or ``[rows, n_acc, n1, n2]``: that
+        row's spectra from n_acc successive blocks, whose |corr|² sum
+        before the peak search) float32 planes of the CONJUGATED
+        wiped+folded data spectra, reshaped row-major from length-NF
+        spectra (index ``k1*n2 + k2``).
+      cw_r/cw_i: ``[n_sv, n1, n2]`` float32 planes from
+        :func:`wrap_code_planes`.
+      period: P = fs/1000 valid lags.
+
+    Returns ``(peak [rows, n_sv] f32, lag [rows, n_sv] i32, tot [rows,
+    n_sv] f32)``, scaled by NF² relative to a unitary inverse FFT (SNR =
+    peak/(tot/P) is scale-free).  A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel or raises.
+    """
+    dev = g_r.device
+    if dev.type == "cpu":
+        return corr_reduce_plain(g_r, g_i, cw_r, cw_i, period=period)
+    if dev.type != "cuda":
+        raise ValueError(f"corr_reduce: unsupported device {dev}")
+    rows, n_acc, n_sv, n1, n2, q_cols = _spectra_shapes(g_r, cw_r, period)
+    _check_planes("corr_reduce", dev, g_r=g_r, g_i=g_i, cw_r=cw_r,
+                  cw_i=cw_i)
+    if g_i.shape != g_r.shape or cw_i.shape != cw_r.shape:
+        raise ValueError("corr_reduce: real/imag plane shapes differ")
+    if _stage_smem(n1, n2, q_cols) > kernels.SMEM_LIMIT:
+        raise ValueError(f"corr_reduce: NF={n1 * n2} needs more shared "
+                         "memory than a Hopper block has")
+    e1, tw, e2 = idft_tables(n1 * n2, str(dev))
+    peak = torch.empty(rows, n_sv, dtype=torch.float32, device=dev)
+    lag = torch.empty(rows, n_sv, dtype=torch.int32, device=dev)
+    tot = torch.empty(rows, n_sv, dtype=torch.float32, device=dev)
+    ptrs = [a.data_ptr() for a in (g_r, g_i, cw_r, cw_i, e1, tw, e2, peak,
+                                   lag, tot)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernels.lib().corr_reduce_launch(
+            *ptrs, rows, n_acc, n_sv, n1, n2, q_cols, period, stream)
+    kernels.check("corr_reduce", err)
+    kernels.LAUNCHES.add("corr_reduce")
     return peak, lag, tot

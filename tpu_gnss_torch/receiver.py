@@ -13,8 +13,12 @@ device compute (the reference SPI pipelining, c/spi.cpp:34-53).  Uploads
 run in the prefetch thread, the blocking device-to-host copies in a
 fetch thread, and re-acquisition searches in a worker thread; all device
 work goes to the default stream.  1-bit captures cross to the device as
-their own packed words (1 bit per sample) and are unpacked and mixed
-there.
+their own packed words (1 bit per sample); each whole chunk is unpacked
+and mixed there in one pass by :func:`tpu_gnss_torch.ops.onebit.mix_packed`
+(the CUDA kernel on a card), and a ragged final chunk is mixed from its
+bits by :func:`tpu_gnss_torch.acquire.search.mix_baseband`.  Acquisition
+uses the fused-kernel engine of :mod:`tpu_gnss_torch.acquire.folded`
+(``detections_refined_fast``).
 
 Channel management, the power watchdog, code-locked transmit
 time, Hatch smoothing, RAIM and the solve cadence are the reference's
