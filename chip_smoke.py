@@ -10,9 +10,19 @@ prints no result line):
    ``ptxas`` line.
 2. Each CUDA kernel against its plain PyTorch version on the card, at
    the main path's shapes, then the median time of both (CUDA events):
-   ``fold_corr_reduce``, ``track_corr``, ``mix_packed`` (``torch.equal``
-   at the e2e, nottingham and LIVE rates) and ``corr_reduce`` (which no
-   path of either package calls: it is driven here as an op).
+   ``fold_corr_reduce`` and ``corr_reduce`` (which no path of either
+   package calls: it is driven here as an op) at the e2e (41 rows, NF
+   2048, n_acc 1 and 8), nottingham (73 rows, NF 16384), SYNTHETIC (49
+   rows, NF 16384, u_rows = q_cols = 64) and LIVE (41 rows, NF 10000 =
+   100 x 100) shapes, ``corr_reduce`` also at the odd-n1 NF 12500; each
+   line gives the achieved TFLOP/s, counted as 8 x the complex MACs of
+   the un-padded four-step over the kernel time: per (row, SV, block)
+   n1*n1*n2 + n1*n2*q_cols for the inverse, plus per (row, block)
+   n2*u_rows*n1 + n2*n1*n1 for ``fold_corr_reduce``'s forward pass.  One
+   ``torch.profiler`` pass splits ``fold_corr_reduce`` at nottingham into
+   its forward and inverse-reduce kernels.  Then ``track_corr`` and
+   ``mix_packed`` (``torch.equal`` at the e2e, nottingham and LIVE
+   rates).
 3. The main path at the e2e geometry: a 20 s, 6-SV, 2.048 Msps 1-bit
    capture through ``Receiver(device="cuda").process_source``; it must
    give >=4 detections, >=4 ephemerides and a fix within 60 m.
@@ -116,9 +126,16 @@ def fold_case(fs: float, rows: int, n_acc: int, dev, seed: int):
     return (xr, xi, cr, ci), dict(period=period, nf=nf)
 
 
-def compare_reduce(name, label, kernel, plain, desc):
+def four_step_cmacs(n1, n2, q_cols, u_rows=0):
+    """Complex MACs of the un-padded four-step: ``(inverse per (row, SV,
+    block), forward per (row, block))``."""
+    return n1 * n1 * n2 + n1 * n2 * q_cols, n2 * u_rows * n1 + n2 * n1 * n1
+
+
+def compare_reduce(name, label, kernel, plain, desc, cmacs):
     """A peak/lag/total kernel against its plain version: lags equal,
-    peak and total within FOLD_TOL, then both times."""
+    peak and total within FOLD_TOL, then both times and the kernel's
+    TFLOP/s (8 x ``cmacs`` complex MACs per call)."""
     pk, lg, tt = (a.cpu() for a in kernel())
     torch.cuda.synchronize()
     ppk, plg, ptt = (a.cpu() for a in plain())
@@ -133,20 +150,26 @@ def compare_reduce(name, label, kernel, plain, desc):
     np.testing.assert_allclose(tt.numpy(), ptt.numpy(), **FOLD_TOL)
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
+    tflops = 8 * cmacs / (ms * 1e-3) / 1e12
     log(f"{name} {label}: {desc} lags equal, max |dpeak| {err:.4e} of "
         f"peaks up to {float(ppk.max()):.4e}, max rel err {rel:.3e} (rtol "
-        f"{FOLD_TOL['rtol']}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{FOLD_TOL['rtol']}), kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
+        f"plain {plain_ms:.3f} ms")
     return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms)
 
 
 def check_fold(fs, rows, n_acc, dev, label):
     from tpu_gnss_torch.ops import mxu_corr as mc
     args, kw = fold_case(fs, rows, n_acc, dev, seed=rows + n_acc)
+    t = mc.four_step_np(kw["nf"], kw["period"])
+    inv, fwd = four_step_cmacs(t["n1"], t["n2"], t["q_cols"], t["u_rows"])
     return compare_reduce(
         "fold_corr_reduce", label,
         lambda: mc.fold_corr_reduce(*args, **kw),
         lambda: mc.fold_corr_reduce_plain(*args, **kw),
-        f"rows={rows} n_sv=32 nf={kw['nf']} n_acc={n_acc}")
+        f"rows={rows} n_sv=32 nf={kw['nf']} ({t['n1']}x{t['n2']}) "
+        f"u_rows={t['u_rows']} q_cols={t['q_cols']} n_acc={n_acc}",
+        rows * n_acc * (fwd + 32 * inv))
 
 
 def check_track(fs, dev, label):
@@ -247,13 +270,48 @@ def check_corr_reduce(fs, rows, n_acc, dev, label):
     from tpu_gnss_torch.ops import mxu_corr as mc
     args, kw = spectra_case(fs, rows, n_acc, dev, seed=2 * rows + n_acc)
     n1, n2 = args[0].shape[-2:]
-    smem = mc._stage_smem(n1, n2, min(n2, -(-kw["period"] // n1)))
+    q_cols = min(n2, -(-kw["period"] // n1))
+    smem = mc.stage_smem(n1, n1, n2, q_cols, planes=4, items=32,
+                         n_acc=n_acc)
     return compare_reduce(
         "corr_reduce", label,
         lambda: mc.corr_reduce(*args, **kw),
         lambda: mc.corr_reduce_plain(*args, **kw),
-        f"rows={rows} n_sv=32 nf={n1 * n2} n_acc={n_acc} dynamic smem "
-        f"{smem} B,")
+        f"rows={rows} n_sv=32 nf={n1 * n2} ({n1}x{n2}) q_cols={q_cols} "
+        f"n_acc={n_acc} dynamic smem {smem} B,",
+        rows * 32 * n_acc * four_step_cmacs(n1, n2, q_cols)[0])
+
+
+def profile_fold_split(dev) -> None:
+    """One ``torch.profiler`` pass over ``fold_corr_reduce`` at the
+    nottingham shape: the device time of each CUDA kernel it launches
+    (pass A ``fcr_forward``, pass B ``fcr_reduce``), per call."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_gnss_torch.ops import mxu_corr as mc
+    args, kw = fold_case(5.456e6, 73, 1, dev, seed=74)
+    calls = 5
+    mc.fold_corr_reduce(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            mc.fold_corr_reduce(*args, **kw)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        for k in ("fcr_forward", "fcr_reduce"):
+            if k in ev.key:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = ev.self_cuda_time_total
+                split[k] = split.get(k, 0.0) + us / 1e3 / calls
+    if not split:
+        log("fold_corr_reduce profiler split (nottingham): the profiler "
+            "recorded no device time for the kernels")
+        return
+    log("fold_corr_reduce profiler split (nottingham 73x32, per call, "
+        f"{calls} calls): " + ", ".join(f"{k} {v:.3f} ms"
+                                        for k, v in sorted(split.items())))
 
 
 def drive_corr_reduce(dev) -> int:
@@ -454,6 +512,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_gnss_torch import PRESETS, ReceiverConfig, kernels
+    from tpu_gnss_torch.acquire.folded import FoldedSearcher
     from tpu_gnss_torch.track.quality import pll_lock_metric
 
     # --- phase 1: card and software -------------------------------------
@@ -477,21 +536,28 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # --- phase 2: kernels against their plain versions -------------------
+    live = PRESETS["live"]
+    live_rows = len(FoldedSearcher(live, device=dev).dops_hz)
     fold_e2e = check_fold(2.048e6, 41, 1, dev, "e2e")
     check_fold(2.048e6, 41, 8, dev, "e2e-weak")
     check_fold(5.456e6, 73, 1, dev, "nottingham")
+    check_fold(PRESETS["synthetic"].fs, 49, 1, dev, "synthetic")
+    check_fold(live.fs, live_rows, 1, dev, "live")
+    profile_fold_split(dev)
+    cr_e2e = check_corr_reduce(2.048e6, 41, 1, dev, "e2e")
+    check_corr_reduce(2.048e6, 41, 8, dev, "e2e-weak")
+    check_corr_reduce(5.456e6, 73, 1, dev, "nottingham")
+    check_corr_reduce(PRESETS["synthetic"].fs, 49, 1, dev, "synthetic")
+    check_corr_reduce(live.fs, live_rows, 1, dev, "live")
+    check_corr_reduce(12.5e6, 41, 1, dev, "odd-n1")
+    cr_launches = drive_corr_reduce(dev)
     track_e2e = check_track(2.048e6, dev, "e2e")
     check_track(5.456e6, dev, "nottingham")
     check_track(12.5e6, dev, "odd-n1")
     mix_e2e = check_mix(2.048e6, 1.0, 2_048_000, 0, dev, "e2e")
     check_mix(5.456e6, 3.0, 5_456_000, 0, dev, "nottingham")
-    live = PRESETS["live"]
     check_mix(live.fs, live.lo_rate, 10_000_000 - 7, 1_000_000_007, dev,
               "live")
-    cr_e2e = check_corr_reduce(2.048e6, 41, 1, dev, "e2e")
-    check_corr_reduce(2.048e6, 41, 8, dev, "e2e-weak")
-    check_corr_reduce(5.456e6, 73, 1, dev, "nottingham")
-    cr_launches = drive_corr_reduce(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         # --- phase 3: main path, e2e geometry ----------------------------

@@ -55,37 +55,6 @@ __device__ __forceinline__ void peak_merge(float& v, int& lag, float v2,
   }
 }
 
-// Block-wide (peak, first lag at the peak, sum); result in thread 0.
-static __device__ void block_peak_sum(float& pk, int& lag, float& tot) {
-  __shared__ float s_pk[TG_THREADS / 32], s_tot[TG_THREADS / 32];
-  __shared__ int s_lag[TG_THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    float v2 = __shfl_down_sync(0xffffffffu, pk, o);
-    int l2 = __shfl_down_sync(0xffffffffu, lag, o);
-    peak_merge(pk, lag, v2, l2);
-    tot += __shfl_down_sync(0xffffffffu, tot, o);
-  }
-  if (lane == 0) {
-    s_pk[warp] = pk;
-    s_lag[warp] = lag;
-    s_tot[warp] = tot;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    pk = lane < TG_THREADS / 32 ? s_pk[lane] : -1.0f;
-    lag = lane < TG_THREADS / 32 ? s_lag[lane] : 0x7fffffff;
-    tot = lane < TG_THREADS / 32 ? s_tot[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) {
-      float v2 = __shfl_down_sync(0xffffffffu, pk, o);
-      int l2 = __shfl_down_sync(0xffffffffu, lag, o);
-      peak_merge(pk, lag, v2, l2);
-      tot += __shfl_down_sync(0xffffffffu, tot, o);
-    }
-  }
-  __syncthreads();
-}
-
 // Dynamic shared memory above 48 KB needs an explicit opt-in per kernel.
 template <typename K>
 __host__ cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -7,116 +7,78 @@
 // four-step DFT R[t, q] = sum_k2 e2[k2, q] tw[t, k2] sum_k1 e1[t, k1]
 // M[k1, k2] (lag = n1*q + t), |R|^2 summed over the n_acc blocks, then peak,
 // first-max lag and total over the P valid lags.  Inputs are in the
-// reference's [k1, k2] row-major layout (spectrum index k1*n2 + k2),
-// indexed as they are.
+// reference's [k1, k2] row-major layout (spectrum index k1*n2 + k2).
 //
-// What bounds it on this card: float32 FMA throughput.  Each (row, SV) is
-// n_acc * (n1*n1*n2 + n1*n2*q_cols) complex MACs (2.8 M at NF = 16384,
-// P = 5456) against 2 * 8 * NF bytes of spectra per block.
+// Design: one block per row and group of SVs (one SV when its tasks fill
+// the block's 8 warps, up to 8 at n1 = 16) runs the inverse stage pair of
+// four_step_mma.cuh (TF32 tensor-core MMAs, f32 accumulation; its header
+// says why that keeps the decisions) over the n_acc blocks, the TPU
+// kernel's sequential grid; the product is formed while it is staged, read
+// in the inputs' own [k1, k2] layout.  The tables are those of
+// fold_corr_reduce's inverse pass.
 //
-// Design: one block per (row, SV), which loops over the n_acc blocks (the
-// TPU kernel's sequential grid).  For each block, a few k2-columns of the
-// product at a time are staged in shared memory [n1, stage]; stage 1 (times
-// the twiddles) fills B[k2, t] in shared memory; stage 2 produces only the
-// q_cols = ceil(P/n1) lag columns and adds |.|^2 to a shared accumulator.
-// One block reduction (peak_merge / block_peak_sum) gives peak, the
-// smallest lag among peak cells, and total.  Shared memory: 8*NF + 8*stage*n1
-// + 4*n1*q_cols bytes (about 166 KB at NF = 16384).  Plain CUDA-core float32
-// FMAs; no tensor cores yet.
+// What bounds it: the latency of the shared stage pair (its note in
+// four_step_mma.cuh), not the tensor cores; each (row, SV) is n_acc *
+// (n1*n1*n2 + n1*n2*q_cols) complex MACs (2.8 M at NF = 16384, P = 5456)
+// against 16 * NF bytes of spectra and code planes per block, read from
+// L2.
 
-#include "common.cuh"
+#include "four_step_mma.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(TG_THREADS)
-corr_reduce_kernel(const float* __restrict__ g_r, const float* __restrict__ g_i,
+template <int NQ>
+__global__ void __launch_bounds__(TG_THREADS, 1)
+corr_reduce_kernel(const float* __restrict__ g_r,
+                   const float* __restrict__ g_i,
                    const float* __restrict__ cw_r,
-                   const float* __restrict__ cw_i,
-                   const float2* __restrict__ e1, const float2* __restrict__ tw,
-                   const float2* __restrict__ e2, float* __restrict__ peak,
-                   int* __restrict__ lag_out, float* __restrict__ tot_out,
-                   int n_acc, int n_sv, int n1, int n2, int q_cols, int period,
-                   int stage) {
-  extern __shared__ float2 sm[];
-  const int nf = n1 * n2, npw = n1 * q_cols;
-  float2* sb = sm;                          // [n2, n1]     inverse stage 1
-  float2* sp = sm + nf;                     // [n1, stage]  product columns
-  float* pw = reinterpret_cast<float*>(sp + stage * n1);  // [q, t]
-  const int row = blockIdx.x / n_sv, sv = blockIdx.x - row * n_sv;
-  const float* cr = cw_r + static_cast<size_t>(sv) * nf;
-  const float* ci = cw_i + static_cast<size_t>(sv) * nf;
-  for (int i = threadIdx.x; i < npw; i += blockDim.x) pw[i] = 0.f;
-
-  for (int b = 0; b < n_acc; ++b) {
-    const size_t off = (static_cast<size_t>(row) * n_acc + b) * nf;
-    const float* gr = g_r + off;
-    const float* gi = g_i + off;
-    for (int k0 = 0; k0 < n2; k0 += stage) {
-      const int nc = min(stage, n2 - k0);
-      __syncthreads();                      // sp reuse
-      // M[k1, k0 + c] for c < nc: runs of nc contiguous spectrum bins
-      for (int i = threadIdx.x; i < n1 * nc; i += blockDim.x) {
-        const int k1 = i / nc, c = i - k1 * nc;
-        const int j = k1 * n2 + k0 + c;
-        sp[k1 * stage + c] =
-            cmul(make_float2(cr[j], ci[j]), make_float2(gr[j], gi[j]));
-      }
-      __syncthreads();
-      // B[k2, t] = tw[t, k2] * sum_k1 e1[t, k1] M[k1, k2]; e1 is symmetric,
-      // so e1[k1 * n1 + t] reads it along t (coalesced)
-      for (int i = threadIdx.x; i < nc * n1; i += blockDim.x) {
-        const int c = i / n1, t = i - c * n1;
-        float2 acc = make_float2(0.f, 0.f);
-        for (int k1 = 0; k1 < n1; ++k1)
-          cfma(acc, sp[k1 * stage + c], e1[k1 * n1 + t]);
-        const int k2 = k0 + c;
-        sb[k2 * n1 + t] = cmul(acc, tw[t * n2 + k2]);
-      }
-    }
-    __syncthreads();
-    // R[t, q] = sum_k2 B[k2, t] e2[k2, q]; cell i = q*n1 + t = lag
-    for (int i = threadIdx.x; i < npw; i += blockDim.x) {
-      const int q = i / n1, t = i - q * n1;
-      float2 acc = make_float2(0.f, 0.f);
-      for (int k2 = 0; k2 < n2; ++k2)
-        cfma(acc, sb[k2 * n1 + t], e2[k2 * n2 + q]);
-      pw[i] += acc.x * acc.x + acc.y * acc.y;
-    }
-  }
-  __syncthreads();
-  float pk = -1.0f, tot = 0.0f;
-  int lag = 0x7fffffff;
-  const int nvalid = min(npw, period);      // lag = n1*q + t = i
-  for (int i = threadIdx.x; i < nvalid; i += blockDim.x) {
-    const float v = pw[i];
-    tot += v;
-    peak_merge(pk, lag, v, i);
-  }
-  block_peak_sum(pk, lag, tot);
-  if (threadIdx.x == 0) {
-    const size_t o = static_cast<size_t>(row) * n_sv + sv;
-    peak[o] = pk;
-    lag_out[o] = lag;
-    tot_out[o] = tot;
-  }
+                   const float* __restrict__ cw_i, fsm::Geo geo,
+                   fsm::Plan plan, float* __restrict__ peak,
+                   int* __restrict__ lag, float* __restrict__ tot, int n_acc,
+                   int n_sv, int q_cols, int period) {
+  const int groups = fsm::cdiv(n_sv, plan.gi);
+  const int row = blockIdx.x / groups;
+  const int sv0 = (blockIdx.x - row * groups) * plan.gi;
+  const int n1 = geo.m, n2 = geo.j, nf = n1 * n2;
+  const size_t off = size_t(row) * n_acc * nf;
+  fsm::reduce_block<NQ, 4>(
+      geo, plan, min(plan.gi, n_sv - sv0), n_acc, n1, q_cols, period,
+      [&](int item, int acc, int k1, int k2, bool valid, float* dst) {
+        const int sv = sv0 + item;
+        valid = valid && sv < n_sv;
+        const size_t i = valid ? size_t(k1) * n2 + k2 : 0;
+        const size_t c = valid ? size_t(sv) * nf + i : 0;
+        const size_t b = valid ? off + size_t(acc) * nf + i : 0;
+        fsm::cp_async4(dst, cw_r + c, valid);
+        fsm::cp_async4(dst + 32, cw_i + c, valid);
+        fsm::cp_async4(dst + 64, g_r + b, valid);
+        fsm::cp_async4(dst + 96, g_i + b, valid);
+      },
+      [](const float* r) {
+        return cmul(make_float2(r[0], r[32]), make_float2(r[64], r[96]));
+      },
+      peak, lag, tot, size_t(row) * n_sv + sv0);
 }
 
 }  // namespace
 
 extern "C" int corr_reduce_launch(
     const float* g_r, const float* g_i, const float* cw_r, const float* cw_i,
-    const float2* e1, const float2* tw, const float2* e2, float* peak,
+    const float* ia1, const float2* itw, const float* ib2, float* peak,
     int* lag, float* tot, int rows, int n_acc, int n_sv, int n1, int n2,
     int q_cols, int period, void* stream) {
-  const int stage = max(1, min(n2, 2048 / n1));
-  const size_t smem =
-      sizeof(float2) * (size_t(n1) * n2 + size_t(stage) * n1) +
-      sizeof(float) * size_t(n1) * q_cols;
-  cudaError_t err = allow_smem(corr_reduce_kernel, smem);
-  if (err != cudaSuccess) return err;
-  corr_reduce_kernel<<<rows * n_sv, TG_THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      g_r, g_i, cw_r, cw_i, e1, tw, e2, peak, lag, tot, n_acc, n_sv, n1, n2,
-      q_cols, period, stage);
+  const fsm::Geo inv = fsm::make_geo(n1, n1, n2, q_cols, ia1, itw, ib2);
+  const fsm::Plan plan = fsm::make_plan(inv, 4, n_sv, fsm::MAX_WARPS);
+  const int blocks = rows * fsm::cdiv(n_sv, plan.gi);
+  cudaError_t err = cudaSuccess;
+  FSM_DISPATCH_NQ(inv.nq,
+    const size_t smem = fsm::reduce_bytes<NQ>(plan, n_acc);
+    err = allow_smem(corr_reduce_kernel<NQ>, smem);
+    if (err != cudaSuccess) return err;
+    corr_reduce_kernel<NQ><<<blocks, plan.warps * 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        g_r, g_i, cw_r, cw_i, inv, plan, peak, lag, tot, n_acc, n_sv,
+        q_cols, period);
+  )
   return cudaGetLastError();
 }

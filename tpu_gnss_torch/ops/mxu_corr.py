@@ -16,8 +16,10 @@ valid lags — without materializing the power grid.
 
 On a CUDA tensor each launches its hand-written kernel; on a CPU tensor
 it runs its ``*_plain`` version, the same arithmetic as float32 PyTorch
-matmuls over the same tables.  Unlike the TPU kernels' bf16 planes, the
-port keeps the code planes and all products in float32.
+matmuls over the same tables.  The kernels run every DFT stage on the
+tensor cores with TF32 operands and float32 accumulation (the TPU kernels:
+bf16 operands), from the fragment-ordered tables of :func:`mma_tables`;
+the plain versions keep all products in float32.
 """
 
 from __future__ import annotations
@@ -127,6 +129,70 @@ def fused_tables(nf: int, period: int, device: str) -> tuple:
         c64(t[k]) for k in ("f2", "wt", "f1", "e1", "tw", "e2"))
 
 
+def tf32_round(a: np.ndarray) -> np.ndarray:
+    """Round float32 values to TF32 (10 mantissa bits kept) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32`` does."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _padded(a: np.ndarray, r: int, c: int) -> np.ndarray:
+    """``a`` zero-padded to multiples of ``r`` rows and ``c`` columns."""
+    m, n = a.shape
+    p = np.zeros((-(-m // r) * r, -(-n // c) * c), a.dtype)
+    p[:m, :n] = a
+    return p
+
+
+_LANE = np.arange(32)
+_GQ, _TQ = _LANE // 4, _LANE % 4     # the lane's row group and column
+
+
+def a_fragments(a: np.ndarray) -> np.ndarray:
+    """``[m, k]`` complex -> the A operands of ``mma.m16n8k8`` (tf32) as a
+    float32 ``[ceil(m/16), 2*ceil(k/16), 32, 8]`` table: per 16x8 tile and
+    lane, the real then the imaginary parts of a0..a3, which are the tile's
+    (g, t), (g+8, t), (g, t+4), (g+8, t+4) with g = lane // 4, t = lane % 4.
+    Zero-padded (k to whole pairs of k-steps) and TF32-rounded."""
+    p = _padded(a, 16, 16)
+    tiles = p.reshape(p.shape[0] // 16, 16, p.shape[1] // 8, 8).swapaxes(1, 2)
+    rows = np.stack([_GQ, _GQ + 8, _GQ, _GQ + 8], -1)
+    cols = np.stack([_TQ, _TQ, _TQ + 4, _TQ + 4], -1)
+    f = tiles[:, :, rows, cols]                       # [mt, ks, 32, 4]
+    return tf32_round(np.concatenate([f.real, f.imag], -1))
+
+
+def b_fragments(b: np.ndarray) -> np.ndarray:
+    """``[j, n]`` complex -> the B operands of the second stage of
+    ``csrc/four_step_mma.cuh`` as a float32 ``[4*ceil(j/32), 8*ceil(n/64),
+    32, 4]`` table: per 8x8 tile and lane (re b0, re b1, im b0, im b1), b0
+    and b1 the tile's rows 2t and 2t+1 in column g (the k order in which the
+    first stage's accumulators serve as A operands).  Zero-padded (j to
+    whole chunks of 32, n to whole runs of 8 tiles) and TF32-rounded."""
+    p = _padded(b, 32, 64)
+    tiles = p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).swapaxes(1, 2)
+    f0, f1 = tiles[:, :, 2 * _TQ, _GQ], tiles[:, :, 2 * _TQ + 1, _GQ]
+    return tf32_round(np.stack([f0.real, f1.real, f0.imag, f1.imag], -1))
+
+
+@functools.lru_cache(maxsize=16)
+def mma_tables(nf: int, period: int, device: str) -> tuple:
+    """``(forward, inverse)`` tables of the tensor-core kernels, each
+    ``(a1, tw, b2)`` on ``device``: ``a1`` from :func:`a_fragments`, ``tw``
+    the float32 twiddles zero-padded to ``[16*ceil(m/16), 32*ceil(j/32)]``
+    (complex64), ``b2`` from :func:`b_fragments`.  Forward (pass A of
+    ``fold_corr_reduce``): A1 = f2, tw = wt, B2 = f1.  Inverse (both
+    kernels): A1 = e1^T (rows t), tw = tw^T ([t, k2]), B2 = e2.  All from
+    :func:`four_step_np`'s float64 tables."""
+    t = four_step_np(nf, period)
+    dev = torch.device(device)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    tw = lambda a: up(_padded(a, 16, 32).astype(np.complex64))
+    return ((up(a_fragments(t["f2"])), tw(t["wt"]), up(b_fragments(t["f1"]))),
+            (up(a_fragments(t["e1"].T)), tw(t["tw"].T),
+             up(b_fragments(t["e2"]))))
+
+
 def fold_code_planes_T(code_ffts_p: np.ndarray, period: int
                        ) -> tuple[np.ndarray, np.ndarray]:
     """Wrapped code spectra as ``[n_sv*n2, n1]`` float32 planes: row
@@ -199,12 +265,29 @@ def _check_planes(name: str, dev, **planes) -> None:
                              f"tensor on {dev}")
 
 
-def _stage_smem(n1: int, n2: int, q_cols: int) -> int:
-    """Shared memory of the inverse stage that both kernels share: the
-    ``[n2, n1]`` stage-1 buffer, ``stage`` staged product rows and the
-    ``[q_cols, n1]`` |.|² accumulator (``stage`` as in the launchers)."""
-    stage = max(1, min(n2, 2048 // n1))
-    return 8 * (n1 * n2 + stage * n1) + 4 * n1 * q_cols
+def stage_smem(m: int, k: int, j: int, n: int, *, planes: int,
+               items: int = 1, max_warps: int = 8, n_acc: int = 1) -> int:
+    """Dynamic shared memory of one launch of ``csrc/four_step_mma.cuh``'s
+    stage pair, its ``make_plan`` and ``reduce_bytes``: two TF32 tiles of a
+    ``[min(128, K), 32]`` chunk per item (K = 16*ceil(k/16)), each thread's
+    raw input slots (``planes`` floats per element), two B2 chunks of
+    ``8*ceil(n/64)`` n-tiles, and for ``n_acc`` > 1 each warp's |Out|²
+    sums.  ``items`` SVs share a block when one item's tasks (16-row m
+    tiles x runs of at most 8 n-tiles) fill fewer than ``max_warps``."""
+    cdiv = lambda a, b: -(-a // b)
+    nt = cdiv(n, 8)
+    runs = cdiv(nt, 8)
+    nq = 2 * cdiv(cdiv(nt, runs), 2)
+    tasks = cdiv(m, 16) * runs
+    rounds = cdiv(tasks, max_warps)
+    wpi = cdiv(tasks, rounds)
+    gi = max(1, min(max_warps // wpi, items)) if rounds == 1 else 1
+    kspc = min(2 * cdiv(k, 16), 16)
+    tile = kspc * 4 * 32 * 16
+    b2 = 4 * 8 * cdiv(nt, 8) * 32 * 16
+    raw = kspc * 4 * 2 * planes * 32 * 4
+    sums = gi * wpi * nq * 4 * 32 * 4 if n_acc > 1 else 0
+    return 2 * gi * tile + 2 * b2 + gi * raw + sums
 
 
 def fold_corr_reduce(x_r: torch.Tensor, x_i: torch.Tensor,
@@ -236,18 +319,20 @@ def fold_corr_reduce(x_r: torch.Tensor, x_i: torch.Tensor,
                   cwT_i=cwT_i)
     if x_i.shape != x_r.shape or cwT_i.shape != cwT_r.shape:
         raise ValueError("fold_corr_reduce: real/imag plane shapes differ")
-    u_rows, q_cols, f2, wt, f1, e1, tw, e2 = fused_tables(nf, period,
-                                                          str(dev))
-    if max(8 * (u_rows * n1 + nf),
-           _stage_smem(n1, n2, q_cols)) > kernels.SMEM_LIMIT:
+    t = four_step_np(nf, period)
+    u_rows, q_cols = t["u_rows"], t["q_cols"]
+    if max(stage_smem(n2, u_rows, n1, n1, planes=2, max_warps=4),
+           stage_smem(n1, n1, n2, q_cols, planes=4, items=n_sv, n_acc=n_acc)
+           ) > kernels.SMEM_LIMIT:
         raise ValueError(f"fold_corr_reduce: NF={nf} needs more shared "
                          "memory than a Hopper block has")
+    fwd, inv = mma_tables(nf, period, str(dev))
     scratch = torch.empty(rows, n_acc, nf, dtype=torch.complex64, device=dev)
     peak = torch.empty(rows, n_sv, dtype=torch.float32, device=dev)
     lag = torch.empty(rows, n_sv, dtype=torch.int32, device=dev)
     tot = torch.empty(rows, n_sv, dtype=torch.float32, device=dev)
-    ptrs = [a.data_ptr() for a in (x_r, x_i, cwT_r, cwT_i, f2, wt, f1, e1,
-                                   tw, e2, scratch, peak, lag, tot)]
+    ptrs = [a.data_ptr() for a in (x_r, x_i, cwT_r, cwT_i, *fwd, *inv,
+                                   scratch, peak, lag, tot)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernels.lib().fold_corr_reduce_launch(
@@ -324,15 +409,16 @@ def corr_reduce(g_r: torch.Tensor, g_i: torch.Tensor, cw_r: torch.Tensor,
                   cw_i=cw_i)
     if g_i.shape != g_r.shape or cw_i.shape != cw_r.shape:
         raise ValueError("corr_reduce: real/imag plane shapes differ")
-    if _stage_smem(n1, n2, q_cols) > kernels.SMEM_LIMIT:
+    if stage_smem(n1, n1, n2, q_cols, planes=4, items=n_sv,
+                  n_acc=n_acc) > kernels.SMEM_LIMIT:
         raise ValueError(f"corr_reduce: NF={n1 * n2} needs more shared "
                          "memory than a Hopper block has")
-    e1, tw, e2 = idft_tables(n1 * n2, str(dev))
+    _, inv = mma_tables(n1 * n2, period, str(dev))
     peak = torch.empty(rows, n_sv, dtype=torch.float32, device=dev)
     lag = torch.empty(rows, n_sv, dtype=torch.int32, device=dev)
     tot = torch.empty(rows, n_sv, dtype=torch.float32, device=dev)
-    ptrs = [a.data_ptr() for a in (g_r, g_i, cw_r, cw_i, e1, tw, e2, peak,
-                                   lag, tot)]
+    ptrs = [a.data_ptr() for a in (g_r, g_i, cw_r, cw_i, *inv, peak, lag,
+                                   tot)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernels.lib().corr_reduce_launch(
