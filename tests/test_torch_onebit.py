@@ -116,3 +116,46 @@ def test_mix_packed_ragged_with_phase0(cfg, rng):
     np.testing.assert_array_equal(
         to.mix_packed_plain(tw, n_bits=n, lo_rate=cfg.lo_rate,
                             phase0_quarters=p0).numpy(), want)
+
+
+_LO_RATES = [E2E.lo_rate, NOTTINGHAM.lo_rate, SYNTHETIC.lo_rate, LIVE.lo_rate,
+             RTLSDR_REPLAY.lo_rate, 1.0 / 3.0]
+
+
+@pytest.mark.parametrize("lo_rate", _LO_RATES)
+def test_part2_table_is_the_plain_phase_sequence(lo_rate):
+    """The kernel's 4096-entry table equals, bit for bit, the plain
+    version's LO phase of the first 4096 samples (part1 is 0 there)."""
+    from tpu_gnss_torch.acquire.search import PHASE_SPLIT, _phase_mod4
+    want = _phase_mod4(torch.arange(PHASE_SPLIT, dtype=torch.int32),
+                       lo_rate).numpy()
+    got = to.part2_table(lo_rate, "cpu").numpy()
+    assert got.dtype == np.float32 and got.shape == (PHASE_SPLIT,)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("lo_rate", _LO_RATES)
+def test_kernel_phase_arithmetic_matches_plain(lo_rate, rng):
+    """csrc/mix_packed.cu's phase index, emulated in numpy float32 (part1
+    per 4096-sample segment, part2 from the table, both remaining fmods as
+    compare-and-subtract), equals the plain version's at samples up to
+    2^31 and at phases up to 4.0 after float32 rounding."""
+    from tpu_gnss_torch.acquire.search import PHASE_SPLIT, _phase_mod4
+    f32 = np.float32
+    i = np.concatenate([np.arange(8192), rng.integers(0, 2 ** 31 - 1, 60000),
+                        np.arange(2 ** 31 - 4096, 2 ** 31 - 1)])
+    c1 = f32((PHASE_SPLIT * lo_rate) % 4.0)
+    part1 = np.fmod((i // PHASE_SPLIT).astype(f32) * c1, f32(4))
+    table = to.part2_table(lo_rate, "cpu").numpy()
+    mod4 = lambda x: np.where(x >= 4, x - f32(4), x).astype(f32)
+    for ph0 in (0.0, 1.5, 3.9999999, float(np.nextafter(4.0, 0.0))):
+        ph0_32 = f32(ph0)
+        got = mod4(mod4(mod4(mod4(part1 + table[i % PHASE_SPLIT])
+                             + ph0_32))).astype(np.int64)
+        ti = torch.from_numpy(i.astype(np.int32))
+        want = ((_phase_mod4(ti, lo_rate)
+                 + torch.tensor(ph0, dtype=torch.float32)) % 4.0
+                ).to(torch.int64).numpy()
+        np.testing.assert_array_equal(got, want)
+    assert f32(3.9999999) == 4.0          # the phase that rounds up
+

@@ -8,13 +8,15 @@ the fused acquisition correlate-reduce and the tracking correlator — are
 hand-written CUDA C++ for ``sm_90a`` in ``csrc/``; each has a plain
 PyTorch version beside it that the CPU tests run.
 
-The package imports ``torch`` and never ``jax``.  It reuses the jax-free
-float64 host layer of ``tpu_gnss`` (constants, config, C/A codes, signal
-synthesis, capture loaders, NAV decode, PVT, NMEA output).
+The package imports ``torch`` and numpy, never ``jax`` and nothing of
+``tpu_gnss``: it keeps its own copy of the float64 host layer it needs
+(``constants``, ``config``, ``signal/cacode``, ``signal/synth``,
+``io/loaders``, ``io/stream``, ``nav/``, ``pvt/``, ``cli/nmea_out``),
+each file headed by the reference lines it was copied from.
 """
 
-from tpu_gnss import constants
-from tpu_gnss.config import PRESETS, ReceiverConfig
+from . import constants
+from .config import PRESETS, ReceiverConfig
 
 __version__ = "0.1.0"
 __all__ = ["constants", "ReceiverConfig", "PRESETS", "__version__"]

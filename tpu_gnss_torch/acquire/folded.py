@@ -35,13 +35,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpu_gnss.config import ReceiverConfig
-from tpu_gnss.signal import cacode
-
+from ..config import ReceiverConfig
 from ..device import full_precision_matmul, resolve_device
 from ..ops.mxu_corr import (fold_code_planes_T, fold_corr_reduce,
                             four_step_np, split_nf)
 from ..ops.onebit import mix_packed, pack_bits_to_words, words_to_tensor
+from ..signal import cacode
 from .search import mix_baseband
 
 # Doppler rows per FFT batch of the grid engine (the reference's default

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_gnss.io.loaders import LO_TABLES
+from ..io.loaders import LO_TABLES
 
 
 def mix_baseband(bits: torch.Tensor, lo_rate: float,

@@ -17,8 +17,7 @@ import sys
 
 import numpy as np
 
-from tpu_gnss.config import PRESETS, ReceiverConfig
-
+from ..config import PRESETS, ReceiverConfig
 from ..io.stream import FileSource1Bit
 from ..receiver import Receiver
 from ..track.quality import pll_lock_metric

@@ -54,7 +54,7 @@ corr_reduce_kernel(const float* __restrict__ g_r,
         fsm::cp_async4(dst + 64, g_r + b, valid);
         fsm::cp_async4(dst + 96, g_i + b, valid);
       },
-      [](const float* r) {
+      [](int, int, int, const float* r) {
         return cmul(make_float2(r[0], r[32]), make_float2(r[64], r[96]));
       },
       peak, lag, tot, size_t(row) * n_sv + sv0);

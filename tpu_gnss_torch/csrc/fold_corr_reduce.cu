@@ -54,7 +54,7 @@ fcr_forward(const float* __restrict__ x_r, const float* __restrict__ x_i,
         fsm::cp_async4(dst, x_r + i, valid);
         fsm::cp_async4(dst + 32, x_i + i, valid);
       },
-      [](const float* r) { return make_float2(r[0], r[32]); },
+      [](int, int, int, const float* r) { return make_float2(r[0], r[32]); },
       [&](int, int, int k2, int k1, float re, float im) {
         if (k2 < n2 && k1 < n1) out[size_t(k2) * n1 + k1] = make_float2(re, -im);
       });
@@ -87,7 +87,7 @@ fcr_reduce(const float2* __restrict__ g, const float* __restrict__ cw_r,
         fsm::cp_async4(dst + 64, gi, valid);
         fsm::cp_async4(dst + 96, gi + 1, valid);
       },
-      [](const float* r) {
+      [](int, int, int, const float* r) {
         return cmul(make_float2(r[0], r[32]), make_float2(r[64], r[96]));
       },
       peak, lag, tot, size_t(row) * n_sv + sv0);

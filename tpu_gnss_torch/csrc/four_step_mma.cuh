@@ -138,6 +138,17 @@ __host__ __device__ inline Plan make_plan(const Geo& g, int nr, int items,
 template <int NQ>
 __host__ __device__ constexpr int pow_floats() { return NQ * 4 * 32; }
 
+// Place (m, n) of Out value `slot` (= 4*q + e < 4*NQ) of a lane of the
+// warp running task `task`: rows lane/4 and lane/4 + 8 of its m-tile,
+// columns 2*(lane%4) and 2*(lane%4) + 1 of its q-th n-tile.
+template <int NQ>
+__device__ __forceinline__ void out_place(const Geo& g, int task, int slot,
+                                          int lane, int& m, int& n) {
+  const int e = slot & 3, q = slot >> 2;
+  m = (task / g.runs) * 16 + (lane >> 2) + 8 * (e >> 1);
+  n = ((task % g.runs) * NQ + q) * 8 + 2 * (lane & 3) + (e & 1);
+}
+
 __device__ __forceinline__ float tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -192,12 +203,15 @@ __device__ __forceinline__ void cp_wait() {
 // `item` when `active`.
 //
 // load(item, acc, k, j, valid, dst) issues cp_async4 of element (k, j) of
-// B1 of input acc of item, one raw plane p to dst[32 * p]; combine(src)
-// forms the complex B1 value from the landed planes src[32 * p].
+// B1 of input acc of item, one raw plane p to dst[32 * p];
+// combine(item, k, j, src) forms the complex B1 value of element (k, j)
+// (padding included: k < 8*ks, j < 8*js) from the landed planes
+// src[32 * p].
 // epi(acc, slot, m, n, re, im) receives each of the warp's Out values
 // after the last chunk of input acc: slot = 4*q + e < 4*NQ numbers the
-// value within the warp's lane, (m, n) is its place (rows m < 16*mt,
-// columns n < 8*ntp, padding included: the caller masks).  `smem` holds plan.bytes.
+// value within the warp's lane, (m, n) is its place (out_place; rows
+// m < 16*mt, columns n < 8*ntp, padding included: the caller masks).
+// `smem` holds plan.bytes.
 template <int NQ, int NR, class Load, class Combine, class Epi>
 __device__ __forceinline__ void four_step(const Geo& g, const Plan& p,
                                           int item, int task, bool active,
@@ -232,14 +246,17 @@ __device__ __forceinline__ void four_step(const Geo& g, const Plan& p,
   };
   // TF32 fragments of chunk i from the landed raw inputs
   auto product = [&](int i) {
-    const int kc = i % nkc;
+    const int kc = i % nkc, jc = (i / nkc) % njc;
     const int ksn = min(KSC, g.ks - kc * KSC);
     float4* tile = tiles + (i & 1) * p.gi * p.tile4;
     for (int u = warp; u < p.gi * units; u += nw) {
       const int it = u / units, lu = u - it * units;
-      if (lu / NJ >= ksn) continue;
+      const int s = lu / NJ;
+      if (s >= ksn) continue;
+      const int k = kc * KC + s * 8 + tq, jj = jc * KT + (lu % NJ) * 8 + gq;
       const float* src = raw + size_t(u) * 2 * NR * 32 + lane;
-      const float2 v0 = combine(src), v1 = combine(src + NR * 32);
+      const float2 v0 = combine(it, k, jj, src),
+                   v1 = combine(it, k + 4, jj, src + NR * 32);
       tile[it * p.tile4 + lu * 32 + lane] =
           make_float4(tf32(v0.x), tf32(v1.x), tf32(v0.y), tf32(v1.y));
     }
@@ -366,8 +383,9 @@ __device__ __forceinline__ void four_step(const Geo& g, const Plan& p,
           for (int q = 0; q < NQ; ++q) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              epi(acc, q * 4 + e, m0 + 8 * (e >> 1),
-                  (nq0 + q) * 8 + 2 * tq + (e & 1), outr[q][e], outi[q][e]);
+              int m, n;
+              out_place<NQ>(g, task, q * 4 + e, lane, m, n);
+              epi(acc, q * 4 + e, m, n, outr[q][e], outi[q][e]);
               outr[q][e] = outi[q][e] = 0.f;
             }
           }

@@ -1,111 +1,168 @@
 // Fused tracking correlator for Hopper (sm_90a): wipe + DFT + E/P/L taps.
 //
 // Replaces the Pallas TPU kernel tpu_gnss/ops/mxu_track.py track_corr
-// (_kernel_factory).  Per (1 ms epoch, channel): carrier wipe-off from
+// (_kernel_factory).  Per (1 ms epoch, channel) item: carrier wipe-off from
 // (phase0, delta), forward four-step DFT of the zero-padded epoch, product
 // with the channel's conjugated wrap-folded code spectrum, then the prompt
 // tap sum_k W[k] e^{-j2pi keff[k] tau/NF} and the early/late taps, which
 // multiply that ramp by fixed tap vectors t(+-d) or, when the early/late
 // lag wraps around the code period, t(+-d -+ P).  Scaled 1/NF.
 //
-// What bounds it on this card: float32 FMA throughput in the DFT (n2*n1*
-// (u_rows + n1) complex MACs per block, 2.7 M at NF = 16384) and, at the
-// small e2e shape, launch latency: one step is only e_sub * n_chan = 120
-// blocks, fewer than the 132 SMs.
+// Design: one block per item runs the forward stage pair of
+// four_step_mma.cuh (TF32 tensor-core MMAs, f32 accumulation), m = k2,
+// k = u, j = v, n = k1 with A1 = F2, tw = Wt, B2 = F1: the tables of
+// fold_corr_reduce's pass A (ops/mxu_corr.mma_tables(nf, period)[0]).  Its
+// tasks (16 k2 rows x a run of k1 columns) fill up to 8 warps and run in
+// rounds above that (2 at NF = 16384).
+//  * The wipe is formed while the epoch is staged: each thread copies the
+//    raw planes of its own fragment slots with cp.async, and combine
+//    multiplies each landed sample by the LO phasor lo_u[u] * lo_v[v]
+//    (sample n1*u + v), two tables the block fills once in shared memory.
+//  * The ramp and the taps factor over k = k1*n2 + k2, keff = k - NF*h
+//    (h = [k >= NF/2]), as in the TPU kernel's rank-1 path:
+//      e^{-j2pi keff x/NF} = c(x)[k1] * r(x)[k2] * (h ? e^{+j2pi x} : 1),
+//    c(x)[k1] = e^{-j2pi k1 x/n1}, r(x)[k2] = e^{-j2pi k2 x/NF}.  The
+//    block builds the three lags' factors (x = tau, tau + d_e, tau + d_l)
+//    once in shared memory: tau's from its integer part ti and fraction
+//    tf, range-reduced exactly ((k1*ti mod n1)/n1 and (k2*ti mod NF)/NF in
+//    int32, n2*NF < 2^31 checked by the wrapper; k*tf/n below one cycle),
+//    times the host's float64-built tap factors of d_e and d_l
+//    (ops/mxu_track.tap_factors), chosen by the wrap flags.  An element
+//    then costs the code product and three
+//    complex products of shared factors: no sin/cos, no modulo, no tap
+//    grids read from memory.
+//  * The epilogue: four_step hands G[k2, k1] over from the stage-2
+//    accumulators (the [k2, k1] layout of spec_planes' code planes); each
+//    lane parks its values in its own slots of a per-warp shared buffer,
+//    and once four_step has returned (its MMA registers dead) applies the
+//    code planes and the factors with six sums in registers.  The block
+//    reduces the sums over its warps in a fixed order, so the result does
+//    not change from run to run (no float atomics, no second pass).
 //
-// Design: one block per (epoch, channel).  The wiped epoch and the first
-// DFT stage live in dynamic shared memory (up to ~200 KB at NF = 12500);
-// the second stage is fused with the spectrum product and the three tap
-// sums, so the spectrum never leaves registers.  The signed-frequency
-// keff = k - NF for k >= NF/2 covers odd and even n1 alike (no rank-1
-// branch).  The ramp phase keff*tau/NF is range-reduced exactly: with
-// tau = ti + tf, (keff*ti mod NF)/NF is integer arithmetic and keff*tf/NF
-// is below half a cycle, so float32 keeps it to ~1e-7 cycles at any NF.
-// Channels are taken as they are (no padding).
+// What bounds it: as four_step_mma.cuh says, latency and issue, not the
+// tensor cores (n2*n1*(u_rows + n1) complex MACs per item, 2.8 M at
+// NF = 16384: 0.27 GFLOP for 120 items is ~0.6 us at the TF32 peak); at
+// the e2e shape (NF = 2048, 120 items) a launch is a few microseconds of
+// latency for 120 blocks on the 132 SMs.
 
-#include "common.cuh"
+#include "four_step_mma.cuh"
 
 namespace {
 
-__device__ __forceinline__ float frac1(float x) { return x - floorf(x); }
+// e^{-j 2 pi frac(cycles)}
+__device__ __forceinline__ float2 phasor(float cycles) {
+  float s, c;
+  sincospif(-2.0f * (cycles - floorf(cycles)), &s, &c);
+  return make_float2(c, s);
+}
 
-__global__ void __launch_bounds__(TG_THREADS)
+template <int NQ>
+__global__ void __launch_bounds__(TG_THREADS, 1)
 track_corr_kernel(const float* __restrict__ blk_r,
                   const float* __restrict__ blk_i,
                   const float* __restrict__ params,
                   const float* __restrict__ cw_r,
                   const float* __restrict__ cw_i,
-                  const float2* __restrict__ f2, const float2* __restrict__ wt,
-                  const float2* __restrict__ f1,
-                  const float2* __restrict__ taps, float* __restrict__ out,
-                  int n_chan, int n1, int n2, int u_rows, int nf) {
-  extern __shared__ float2 sm[];
-  float2* y = sm;                   // [u_rows, n1] wiped epoch
-  float2* z = sm + u_rows * n1;     // [n2, n1]     stage 1 + twiddle
-  const int e = blockIdx.x / n_chan, c = blockIdx.x - e * n_chan;
-  const float* par = params + (static_cast<size_t>(e) * n_chan + c) * 5;
-  const float phase0 = par[0], delta = par[1], tau = par[2];
-  const bool wrap_e = par[3] > 0.5f, wrap_l = par[4] > 0.5f;
-  const int ny = u_rows * n1;
-  const float* br = blk_r + static_cast<size_t>(e) * ny;
-  const float* bi = blk_i + static_cast<size_t>(e) * ny;
-  // carrier wipe: sample n = n1*u + v, phase factored as in the reference
-  for (int i = threadIdx.x; i < ny; i += blockDim.x) {
-    const int u = i / n1, v = i - u * n1;
-    float su, cu, sv, cv;
-    const float pu = phase0 + delta * static_cast<float>(u * n1);
-    sincospif(-2.0f * frac1(pu), &su, &cu);
-    sincospif(-2.0f * frac1(delta * static_cast<float>(v)), &sv, &cv);
-    const float2 lo = cmul(make_float2(cu, su), make_float2(cv, sv));
-    y[i] = cmul(make_float2(br[i], bi[i]), lo);
+                  const float2* __restrict__ tapf, fsm::Geo geo,
+                  fsm::Plan plan, float* __restrict__ out, int n_chan,
+                  int nf) {
+  extern __shared__ float4 fsm_smem[];
+  __shared__ float part[fsm::MAX_WARPS][6];
+  const int item = blockIdx.x;                       // e * n_chan + c
+  const int e = item / n_chan, c = item - e * n_chan;
+  const int n2 = geo.m, n1 = geo.j, nyz = n2 * n1, nfac = n1 + n2 + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = blockDim.x;
+  // after four_step's own buffers: lo_u [8*ks], lo_v [8*js], the factors
+  // fac [3 lags][n1 columns, n2 rows, 1 upper-half phasor] and each warp's
+  // parked Out values [4*NQ][32]
+  float2* lo_u = reinterpret_cast<float2*>(fsm_smem + plan.bytes / 16);
+  float2* lo_v = lo_u + 8 * geo.ks;
+  float2* fac = lo_v + 8 * geo.js;
+  float2* park = fac + 3 * nfac + warp * 4 * NQ * 32 + lane;
+  {
+    const float* par = params + size_t(item) * 5;
+    const float phase0 = par[0], delta = par[1], tau = par[2];
+    for (int i = threadIdx.x; i < 8 * geo.ks; i += nt)
+      lo_u[i] = phasor(phase0 + delta * static_cast<float>(i * n1));
+    for (int i = threadIdx.x; i < 8 * geo.js; i += nt)
+      lo_v[i] = phasor(delta * static_cast<float>(i));
+    // tap factor sets of the host table: d, d - P, -d, -d + P
+    const float2* fe = tapf + (par[3] > 0.5f ? 1 : 0) * nfac;
+    const float2* fl = tapf + (par[4] > 0.5f ? 3 : 2) * nfac;
+    const float ti = floorf(tau), tf = tau - ti;
+    int tim = static_cast<int>(fmodf(ti, static_cast<float>(nf)));
+    tim = tim < 0 ? tim + nf : tim;
+    for (int i = threadIdx.x; i < nfac; i += nt) {
+      float2 a;
+      if (i < n1) {                                  // column k1
+        a = phasor(static_cast<float>((i * (tim % n1)) % n1) / n1 +
+                   static_cast<float>(i) * tf / n1);
+      } else if (i < n1 + n2) {                      // row k2
+        const int k2 = i - n1;
+        a = phasor(static_cast<float>((k2 * tim) % nf) / nf +
+                   static_cast<float>(k2) * tf / nf);
+      } else {                                       // e^{+j2pi tau}
+        a = phasor(-tf);
+      }
+      fac[i] = a;
+      fac[nfac + i] = cmul(a, __ldg(fe + i));
+      fac[2 * nfac + i] = cmul(a, __ldg(fl + i));
+    }
   }
-  __syncthreads();
-  const int nyz = n2 * n1;
-  for (int i = threadIdx.x; i < nyz; i += blockDim.x) {
-    const int k2 = i / n1, v = i - k2 * n1;
-    float2 acc = make_float2(0.f, 0.f);
-    for (int u = 0; u < u_rows; ++u)
-      cfma(acc, f2[k2 * u_rows + u], y[u * n1 + v]);
-    z[i] = cmul(acc, wt[i]);
-  }
-  __syncthreads();
-  const float ti = floorf(tau), tf = tau - ti;
-  const long long tii = static_cast<long long>(ti);
-  const size_t cbase = static_cast<size_t>(c) * nyz;
-  const float2* te = taps + (wrap_e ? nyz : 0);        // t(d) or t(d-P)
-  const float2* tl = taps + (wrap_l ? 3 * nyz : 2 * nyz);
+  // (four_step's first barrier orders the tables before their reads)
+  const size_t xoff = size_t(e) * geo.k * n1;        // [u_rows, n1] epoch
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = threadIdx.x; i < nyz; i += blockDim.x) {
-    const int k2 = i / n1, k1 = i - k2 * n1;
-    float2 gk = make_float2(0.f, 0.f);
-    const float2* zr = z + k2 * n1;
-    for (int v = 0; v < n1; ++v) cfma(gk, zr[v], f1[v * n1 + k1]);
-    const float2 p = cmul(make_float2(cw_r[cbase + i], cw_i[cbase + i]), gk);
-    const long long k = static_cast<long long>(k1) * n2 + k2;
-    const long long keff = k >= nf / 2 ? k - nf : k;
-    long long m = (keff * tii) % nf;
-    if (m < 0) m += nf;
-    const float fnf = static_cast<float>(nf);
-    const float ph = frac1(static_cast<float>(m) / fnf
-                           + static_cast<float>(keff) * tf / fnf);
-    float s, co;
-    sincospif(-2.0f * ph, &s, &co);
-    const float2 w = cmul(p, make_float2(co, s));
-    const float2 we = cmul(w, te[i]);
-    const float2 wl = cmul(w, tl[i]);
-    acc[0] += w.x;
-    acc[1] += w.y;
-    acc[2] += we.x;
-    acc[3] += we.y;
-    acc[4] += wl.x;
-    acc[5] += wl.y;
-  }
-  block_sum<6>(acc);
-  if (threadIdx.x == 0) {
-    float* o = out + (static_cast<size_t>(e) * n_chan + c) * 6;
-    const float inv = 1.0f / static_cast<float>(nf);
+  for (int r = 0; r < plan.rounds; ++r) {
+    const int task = r * plan.wpi + warp;
+    const bool active = task < plan.tasks;
+    fsm::four_step<NQ, 2>(
+        geo, plan, 0, active ? task : 0, active, 1, fsm_smem,
+        [&](int, int, int u, int v, bool valid, float* dst) {
+          const size_t i = valid ? xoff + size_t(u) * n1 + v : 0;
+          fsm::cp_async4(dst, blk_r + i, valid);
+          fsm::cp_async4(dst + 32, blk_i + i, valid);
+        },
+        [&](int, int u, int v, const float* s) {
+          return cmul(make_float2(s[0], s[32]), cmul(lo_u[u], lo_v[v]));
+        },
+        [&](int, int slot, int, int, float re, float im) {
+          park[slot * 32] = make_float2(re, im);
+        });
+    if (!active) continue;
+    const size_t cbase = size_t(c) * nyz;            // code planes [k2, k1]
+#pragma unroll 8
+    for (int slot = 0; slot < 4 * NQ; ++slot) {
+      int k2, k1;
+      fsm::out_place<NQ>(geo, task, slot, lane, k2, k1);
+      if (k2 >= n2 || k1 >= n1) continue;
+      const int i = k2 * n1 + k1;
+      const float2 p =
+          cmul(make_float2(__ldg(cw_r + cbase + i), __ldg(cw_i + cbase + i)),
+               park[slot * 32]);
+      const bool upper = k1 * n2 + k2 >= nf / 2;
 #pragma unroll
-    for (int j = 0; j < 6; ++j) o[j] = acc[j] * inv;
+      for (int x = 0; x < 3; ++x) {
+        const float2* f = fac + x * nfac;
+        float2 w = cmul(f[k1], f[n1 + k2]);
+        if (upper) w = cmul(w, f[n1 + n2]);
+        w = cmul(p, w);
+        acc[2 * x] += w.x;
+        acc[2 * x + 1] += w.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j) acc[j] = warp_sum(acc[j]);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) part[warp][j] = acc[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    float s = 0.0f;
+    for (int w = 0; w < nt / 32; ++w) s += part[w][threadIdx.x];
+    out[size_t(item) * 6 + threadIdx.x] = s / static_cast<float>(nf);
   }
 }
 
@@ -113,17 +170,24 @@ track_corr_kernel(const float* __restrict__ blk_r,
 
 extern "C" int track_corr_launch(const float* blk_r, const float* blk_i,
                                  const float* params, const float* cw_r,
-                                 const float* cw_i, const float2* f2,
-                                 const float2* wt, const float2* f1,
-                                 const float2* taps, float* out, int e_sub,
+                                 const float* cw_i, const float* fa1,
+                                 const float2* ftw, const float* fb2,
+                                 const float2* tapf, float* out, int e_sub,
                                  int n_chan, int n1, int n2, int u_rows,
                                  int nf, void* stream) {
-  const size_t smem = sizeof(float2) * (size_t(u_rows) * n1 + size_t(n1) * n2);
-  cudaError_t err = allow_smem(track_corr_kernel, smem);
-  if (err != cudaSuccess) return err;
-  track_corr_kernel<<<e_sub * n_chan, TG_THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      blk_r, blk_i, params, cw_r, cw_i, f2, wt, f1, taps, out, n_chan, n1, n2,
-      u_rows, nf);
+  const fsm::Geo geo = fsm::make_geo(n2, u_rows, n1, n1, fa1, ftw, fb2);
+  const fsm::Plan plan = fsm::make_plan(geo, 2, 1, fsm::MAX_WARPS);
+  const int threads = plan.warps * 32;
+  cudaError_t err = cudaSuccess;
+  FSM_DISPATCH_NQ(geo.nq,
+    const size_t smem = plan.bytes +
+        sizeof(float2) * (8 * (geo.ks + geo.js) + 3 * (n1 + n2 + 1) +
+                          4 * NQ * threads);
+    err = allow_smem(track_corr_kernel<NQ>, smem);
+    if (err != cudaSuccess) return err;
+    track_corr_kernel<NQ><<<e_sub * n_chan, threads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+        blk_r, blk_i, params, cw_r, cw_i, tapf, geo, plan, out, n_chan, nf);
+  )
   return cudaGetLastError();
 }

@@ -42,7 +42,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fold_corr_reduce_launch": [_P] * 14 + [_I] * 8 + [_P],
     "track_corr_launch": [_P] * 10 + [_I] * 6 + [_P],
-    "mix_packed_launch": [_P] * 2 + [_I] + [_F] * 3 + [_I] * 2 + [_P],
+    "mix_packed_launch": [_P] * 3 + [_I] + [_F] * 2 + [_I] * 2 + [_P],
     "corr_reduce_launch": [_P] * 10 + [_I] * 7 + [_P],
 }
 

@@ -13,7 +13,11 @@ at the prompt lag τ, and at τ ± d through fixed tap vectors (the
 period).  Reference semantics: 1 ms integrate-and-dump E/P/L
 correlators of the FPGA channel design.
 
-* On a CUDA tensor :func:`track_corr` launches ``csrc/track_corr.cu``.
+* On a CUDA tensor :func:`track_corr` launches ``csrc/track_corr.cu``,
+  which runs the forward DFT on the tensor cores with TF32 operands and
+  float32 accumulation, from the forward tables of
+  :func:`tpu_gnss_torch.ops.mxu_corr.mma_tables` (the TPU kernel: bf16
+  operands).
 * On a CPU tensor it runs :func:`track_corr_plain`, the FFT-dot einsum
   formulation in float32 over the same float64 tables cast down.
 
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .mxu_corr import four_step_np, split_nf
+from .mxu_corr import four_step_np, mma_tables, split_nf, stage_smem
 
 
 @functools.lru_cache(maxsize=8)
@@ -54,6 +58,25 @@ def track_tables(nf: int, period: int, dsamp: float, device: str) -> tuple:
     return (t["u_rows"], c64(t["f2"]), c64(t["wt"]), c64(t["f1"]),
             c64(dense_taps(nf, period, dsamp)),
             torch.from_numpy(t["keff"].astype(np.int64)).to(dev))
+
+
+@functools.lru_cache(maxsize=16)
+def tap_factors(nf: int, period: int, dsamp: float, device: str
+                ) -> torch.Tensor:
+    """``[4, n1 + n2 + 1]`` complex64 factors of the tap grids of
+    :func:`dense_taps` (d = +d, +d-P, -d, -d+P) on ``device``, built in
+    float64: ``e^{-j2π k1 d/n1}`` for every k1, ``e^{-j2π k2 d/NF}`` for
+    every k2, then ``e^{+j2π d}``, so that ``t(d)[k2, k1]`` is the product
+    of the k1 and k2 entries, times the last one where ``k1*n2 + k2 >=
+    NF//2`` (keff = k - NF there).  ``csrc/track_corr.cu`` multiplies them
+    into the ramp's own factors."""
+    n1, n2 = split_nf(nf)
+    k1, k2 = np.arange(n1), np.arange(n2)
+    rows = [np.concatenate([np.exp(-2j * np.pi * k1 * (d / n1)),
+                            np.exp(-2j * np.pi * k2 * (d / nf)),
+                            [np.exp(2j * np.pi * d)]])
+            for d in (dsamp, dsamp - period, -dsamp, -dsamp + period)]
+    return torch.from_numpy(np.stack(rows).astype(np.complex64)).to(device)
 
 
 def spec_planes(code_ffts: torch.Tensor, nf: int) -> tuple:
@@ -98,6 +121,27 @@ def _check(blk_r, params, cw_r, period: int, nf: int):
         raise ValueError(f"code planes must be [{n_chan * n2}, {n1}], "
                          f"got {tuple(cw_r.shape)}")
     return e_sub, n_chan, n1, n2, u_rows
+
+
+@functools.lru_cache(maxsize=16)
+def track_smem(nf: int, period: int) -> int:
+    """Dynamic shared memory of one ``csrc/track_corr.cu`` block: the
+    forward stage pair's (:func:`stage_smem`, one item, up to 8 warps),
+    the LO phasor tables ``lo_u [16*ceil(u_rows/16)]`` and ``lo_v
+    [32*ceil(n1/32)]``, three lags' ramp factors ``[n1 + n2 + 1]`` and
+    each thread's ``4*nq`` parked outputs (all complex64; nq out n-tiles
+    a warp, as ``make_plan`` picks them)."""
+    t = four_step_np(nf, period)
+    n1, n2, u_rows = t["n1"], t["n2"], t["u_rows"]
+    cdiv = lambda a, b: -(-a // b)
+    nt = cdiv(n1, 8)
+    runs = cdiv(nt, 8)
+    nq = 2 * cdiv(cdiv(nt, runs), 2)
+    tasks = cdiv(n2, 16) * runs
+    threads = 32 * cdiv(tasks, cdiv(tasks, 8))
+    return (stage_smem(n2, u_rows, n1, n1, planes=2)
+            + 8 * (16 * cdiv(u_rows, 16) + 32 * cdiv(n1, 32)
+                   + 3 * (n1 + n2 + 1) + 4 * nq * threads))
 
 
 def track_corr_plain(blk_r: torch.Tensor, blk_i: torch.Tensor,
@@ -162,13 +206,17 @@ def track_corr(blk_r: torch.Tensor, blk_i: torch.Tensor,
                              f"float32 tensor on {dev}")
     if blk_i.shape != blk_r.shape or cw_i.shape != cw_r.shape:
         raise ValueError("track_corr: real/imag plane shapes differ")
-    if 8 * (u_rows * n1 + n1 * n2) > kernels.SMEM_LIMIT:
+    if n2 * nf >= 2 ** 31:
+        raise ValueError(f"track_corr: NF={nf} is too long for the "
+                         "kernel's int32 ramp reduction (n2*NF < 2^31)")
+    if track_smem(nf, period) > kernels.SMEM_LIMIT:
         raise ValueError(f"track_corr: NF={nf} needs more shared memory "
                          "than a Hopper block has")
-    _, f2, wt, f1, taps, _ = track_tables(nf, period, dsamp, str(dev))
+    fwd = mma_tables(nf, period, str(dev))[0]
+    tapf = tap_factors(nf, period, dsamp, str(dev))
     out = torch.empty(e_sub, n_chan, 6, dtype=torch.float32, device=dev)
-    ptrs = [a.data_ptr() for a in (blk_r, blk_i, params, cw_r, cw_i, f2, wt,
-                                   f1, taps, out)]
+    ptrs = [a.data_ptr() for a in (blk_r, blk_i, params, cw_r, cw_i, *fwd,
+                                   tapf, out)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernels.lib().track_corr_launch(

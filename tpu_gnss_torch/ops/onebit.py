@@ -12,7 +12,8 @@ bit k, and int32 has full operator support.
 
 * On a CUDA tensor it launches the hand-written kernel in
   ``csrc/mix_packed.cu`` (one read of the words, one write of the
-  complex64 samples).
+  complex64 samples), which takes the in-segment phase from
+  :func:`part2_table`.
 * On a CPU tensor it runs :func:`mix_packed_plain`.
 
 The port takes plain LSB-first words; the TPU kernel's bit-plane layout
@@ -22,13 +23,14 @@ lanes) is not ported.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from tpu_gnss.io.loaders import LO_TABLES
-
 from .. import kernels
 from ..acquire.search import PHASE_SPLIT, mix_baseband
+from ..io.loaders import LO_TABLES
 
 
 def pack_bits_to_words(bits: np.ndarray) -> np.ndarray:
@@ -78,6 +80,18 @@ def mix_packed_plain(words: torch.Tensor, *, n_bits: int, lo_rate: float,
                         phase0_quarters=phase0_quarters)
 
 
+@functools.lru_cache(maxsize=16)
+def part2_table(lo_rate: float, device: str) -> torch.Tensor:
+    """``fmod(float32(r) * float32(lo_rate), 4)`` for r < 4096, a float32
+    tensor on ``device`` built on the host with numpy: the in-segment part
+    of the plain version's LO phase
+    (:func:`tpu_gnss_torch.acquire.search._phase_mod4`), rounded as it
+    rounds.  ``csrc/mix_packed.cu`` reads it instead of computing it."""
+    r = np.arange(PHASE_SPLIT, dtype=np.float32)
+    t = np.fmod(r * np.float32(lo_rate), np.float32(4.0))
+    return torch.from_numpy(t).to(device)
+
+
 def _sign_mask(tbl) -> int:
     """Bit p set where the LO table entry for phase p is 1 (sign -1)."""
     return sum(1 << p for p, v in enumerate(tbl) if v)
@@ -108,15 +122,15 @@ def mix_packed(words: torch.Tensor, *, n_bits: int, lo_rate: float,
     if not 0 <= n_bits <= 32 * words.shape[0] or n_bits >= 2 ** 31:
         raise ValueError(f"mix_packed: n_bits={n_bits} does not fit "
                          f"{words.shape[0]} words")
-    if lo_rate < 0 or phase0_quarters < 0:
-        # the kernel's fmodf equals the plain floor-mod only for
-        # non-negative operands
-        raise ValueError("mix_packed: lo_rate and phase0_quarters must be "
-                         ">= 0")
+    if lo_rate < 0 or not 0 <= phase0_quarters < 4:
+        # the kernel's fmods equal the plain floor-mod only for
+        # non-negative operands, and its compare-and-subtract reductions
+        # need a phase below 4 (4.0 after float32 rounding at most)
+        raise ValueError("mix_packed: need lo_rate >= 0 and "
+                         "0 <= phase0_quarters < 4")
     # the float32 constants of mix_baseband / _phase_mod4, rounded once on
     # the host exactly as the plain version rounds them
     c1 = float(np.float32((PHASE_SPLIT * lo_rate) % 4.0))
-    c2 = float(np.float32(lo_rate))
     ph0 = float(np.float32(phase0_quarters))
     i_tbl, q_tbl = LO_TABLES["offline"]
     out = torch.empty(n_bits, dtype=torch.complex64, device=dev)
@@ -125,8 +139,9 @@ def mix_packed(words: torch.Tensor, *, n_bits: int, lo_rate: float,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernels.lib().mix_packed_launch(
-            words.data_ptr(), out.data_ptr(), n_bits, c1, c2, ph0,
-            _sign_mask(i_tbl), _sign_mask(q_tbl), stream)
+            words.data_ptr(), part2_table(lo_rate, str(dev)).data_ptr(),
+            out.data_ptr(), n_bits, c1, ph0, _sign_mask(i_tbl),
+            _sign_mask(q_tbl), stream)
     kernels.check("mix_packed", err)
     kernels.LAUNCHES.add("mix_packed")
     return out

@@ -45,20 +45,19 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tpu_gnss.config import ReceiverConfig
-from tpu_gnss.constants import (CHIP_RATE_HZ, CODE_LEN_CHIPS, CODES_PER_BIT,
-                                L1_HZ)
-from tpu_gnss.io import loaders
-from tpu_gnss.nav import almanac as nav_almanac
-from tpu_gnss.nav import bits as nav_bits
-from tpu_gnss.nav.ephemeris import Ephemeris
-from tpu_gnss.pvt import solve as pvt
-
 from .acquire.folded import FoldedSearcher
 from .acquire.search import mix_baseband
+from .cli.nmea_out import sat_geometry
+from .config import ReceiverConfig
+from .constants import CHIP_RATE_HZ, CODE_LEN_CHIPS, CODES_PER_BIT, L1_HZ
 from .device import full_precision_matmul, resolve_device
+from .io import loaders
 from .io.stream import ArraySource, Prefetcher
+from .nav import almanac as nav_almanac
+from .nav import bits as nav_bits
+from .nav.ephemeris import Ephemeris, resolve_week
 from .ops.onebit import mix_packed, words_to_tensor
+from .pvt import solve as pvt
 from .track import channel as tc
 from .utils.metrics import METRICS
 
@@ -852,13 +851,11 @@ class Receiver:
         sol.week = int(ephs[0].week) if ephs else None
         utc_eph = next((e for e in ephs if e.has_utc), None)
         if utc_eph is not None and sol.week is not None:
-            from tpu_gnss.nav.ephemeris import resolve_week
             sol.leap_s = utc_eph.leap_seconds(
                 resolve_week(sol.week), sol.t_rx)
         else:
             sol.leap_s = None
         # satellite view + DOPs for NMEA emission (cli.nmea_out)
-        from tpu_gnss.cli.nmea_out import sat_geometry
         sv = np.array([e.get_xyz(t) for e, t in zip(ephs, t_tx)])
         elev, az, dop_d = sat_geometry(np.array([sol.x, sol.y, sol.z]), sv)
         sol.dops = dop_d

@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpu_gnss.constants import OMEGA_E, SPEED_OF_LIGHT
-from tpu_gnss.io import loaders
-from tpu_gnss.nav.ephemeris import Ephemeris, encode_subframes
-from tpu_gnss.pvt import solve as ps
-from tpu_gnss.signal import synth
+from ..constants import OMEGA_E, SPEED_OF_LIGHT
+from ..io import loaders
+from ..nav.ephemeris import Ephemeris, encode_subframes
+from ..pvt import solve as ps
+from . import synth
 
 FS = 2.048e6
 TRUTH_LLA = (52.95, -1.15, 48.0)

@@ -24,12 +24,11 @@ from typing import Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpu_gnss.constants import CHIP_RATE_HZ, CODE_LEN_CHIPS, L1_HZ
-from tpu_gnss.signal import cacode
-
 from ..acquire.folded import fft_len_for_period
+from ..constants import CHIP_RATE_HZ, CODE_LEN_CHIPS, L1_HZ
 from ..ops import mxu_track
 from ..ops.mxu_corr import four_step_np, split_nf
+from ..signal import cacode
 
 
 def second_order_gains(bn_hz: float, zeta: float = 0.7071,
