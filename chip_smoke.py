@@ -14,28 +14,36 @@ prints no result line):
    ``fold_corr_reduce`` and ``corr_reduce`` (which no path of either
    package calls: it is driven here as an op) at the e2e (41 rows, NF
    2048, n_acc 1 and 8), nottingham (73 rows, NF 16384), SYNTHETIC (49
-   rows, NF 16384, u_rows = q_cols = 64) and LIVE (41 rows, NF 10000 =
-   100 x 100) shapes, ``corr_reduce`` also at the odd-n1 NF 12500; each
-   line gives the achieved TFLOP/s, counted as 8 x the complex MACs of
-   the un-padded four-step over the kernel time: per (row, SV, block)
+   rows, NF 16384, u_rows = q_cols = 64), LIVE (41 rows, NF 10000 =
+   100 x 100), hackrf (801 rows, NF 10000) and rtlsdr (2857 rows, NF
+   8192 = 64 x 128) shapes, ``corr_reduce`` also at the odd-n1 NF 12500;
+   each line gives the achieved TFLOP/s, counted as 8 x the complex MACs
+   of the un-padded four-step over the kernel time: per (row, SV, block)
    n1*n1*n2 + n1*n2*q_cols for the inverse, plus per (row, block)
    n2*u_rows*n1 + n2*n1*n1 for ``fold_corr_reduce``'s forward pass.  One
    ``torch.profiler`` pass splits ``fold_corr_reduce`` at nottingham into
    its forward and inverse-reduce kernels.  Then ``track_corr`` (10
-   epochs x 12 channels at the e2e, nottingham and odd-n1 rates, within
-   ``TRACK_ATOL`` x max|P| of the plain version; FLOPs per item counted
-   as ``fold_corr_reduce``'s forward pass) and ``mix_packed``
+   epochs x 12 channels at the e2e, nottingham, odd-n1, 10 Msps and 2.8
+   Msps rates and at e2e with 0.25-chip taps, within ``TRACK_ATOL`` x
+   max|P| of the plain version; FLOPs per item counted as
+   ``fold_corr_reduce``'s forward pass) and ``mix_packed``
    (``torch.equal`` at the e2e, nottingham and LIVE rates).  Every line
    gives the kernel's bound: the larger of its FLOPs at the H100's dense
    TF32 peak (495 TFLOP/s) and its bytes (each input read once, each
    output written once) at 3.35 TB/s, and the share bound / time.
+2b. The host->device links: each device dequantizer on seeded data
+   against the numpy computation of the same arithmetic (int8 and int4
+   planes equal; the iq8, iq4 and iq2 capture-byte links with DC removal
+   within 1e-6 x max|x|), with the bytes each uploads per sample.
 3. The main path at the e2e geometry: a 20 s, 6-SV, 2.048 Msps 1-bit
    capture through ``Receiver(device="cuda").process_source``; it must
    give >=4 detections, >=4 ephemerides and a fix within 60 m.
 4. The main path at the ``nottingham`` geometry (4 s at 5.456 Msps,
    NF 16384): >=4 detections and those channels locked.
 5. Launch counters: every receiver kernel (``fold_corr_reduce``,
-   ``track_corr``, ``mix_packed``) launched in both main-path runs.
+   ``track_corr``, ``mix_packed``) launched in both 1-bit runs.  Every
+   run of phases 3-12 sets the counts to 0 just before it and reads them
+   just after, and fails if a kernel of its path was not launched.
 6. The folded search API at the nottingham geometry (32 PRNs, 73
    Doppler rows, NF 16384) on one 4 ms block of a 6-SV 1-bit scene:
    ``acquire`` (grid engine), ``acquire(engine="mxu")``,
@@ -47,7 +55,28 @@ prints no result line):
    ``acquire_folded_batch_mxu``, its time and rate in
    Msample*PRN*bin/s, and the grid engine ``acquire_folded_batch`` on
    the first 8 blocks against it.
+8. Phase 3's baseband written as an int8 I/Q capture too, through
+   ``IQFileSource`` and the default int8 link (the file's own bytes):
+   phase 3's fix gate.
+9. Full width at the ``hackrf`` preset (10 Msps, 32 PRNs, +-100 kHz, 801
+   Doppler rows, 12 channels): a 4 s, 6-SV int8 I/Q scene with a +25 kHz
+   common offset, once per link (int8, int4, int2, float32): >= 4
+   detections, the same PRNs on every link, those channels locked, the
+   oscillator-offset estimate within 250 Hz of the truth, and int4 / int2
+   against int8 within the reference's bars; the MB uploaded per second
+   of signal.
+10. The ``rtlsdr`` preset (2.8 Msps, 2857 rows): a 4 s uint8 scene at
+   -18 kHz through the int8 link, with phase 9's gates.
+11. Live mode: a writer thread grows phase 3's 1-bit capture at 4x real
+   time; ``FollowSource1Bit`` with ``on_solution``, ``max_history_s`` 600
+   and a ``.done`` sidecar must deliver a fix in-stream, the last within
+   60 m.
+12. The gather correlator (``fft_correlator=False``) on the first 4 s of
+   phase 3's capture must lock the channels the FFT path locks.
 
+Phases 8-12 run before 6-7, inside phase 3's temporary directory.  Every
+receiver run prints its wall, realtime factor, ``receiver.transfer``
+seconds and launch counts.
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.  In the kernels line,
 ``max_abs_err`` is in the kernel's own output units and ``max_rel_err``
@@ -62,6 +91,7 @@ and where the ``tpu_gnss_torch`` package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -176,9 +206,10 @@ def four_step_cmacs(n1, n2, q_cols, u_rows=0):
 
 
 def compare_reduce(name, label, kernel, plain, desc, cmacs, nbytes):
-    """A peak/lag/total kernel against its plain version: lags equal,
-    peak and total within FOLD_TOL, then both times, the kernel's TFLOP/s
-    (8 x ``cmacs`` complex MACs per call) and its bound."""
+    """A peak/lag/total kernel against its plain version: lags equal (but
+    for rare near-ties, below), peak and total within FOLD_TOL, then both
+    times, the kernel's TFLOP/s (8 x ``cmacs`` complex MACs per call) and
+    its bound."""
     pk, lg, tt = (a.cpu() for a in kernel())
     torch.cuda.synchronize()
     ppk, plg, ptt = (a.cpu() for a in plain())
@@ -186,16 +217,33 @@ def compare_reduce(name, label, kernel, plain, desc, cmacs, nbytes):
     # is large in these units; the relative error says whether parity held
     err = float((pk - ppk).abs().max())
     rel = float(((pk - ppk).abs() / ppk).max())
-    if not torch.equal(lg, plg):
-        fail(f"{name} {label}: lags differ in {int((lg != plg).sum())} "
-             "cells")
+    # lags equal, but for near-ties: where two lags of a cell hold
+    # values within TF32's ~7e-4 of each other (at 10 Msps a chip spans
+    # ~10 samples, so the neighbouring lag sits only ~10% lower before the
+    # other 31 SVs' cross-correlation adds in), the kernel may pick the
+    # other one.  Such a cell reports the same peak value within 2e-3; a
+    # wrong lag would report a lower one.  At most 1e-3 of the cells.
+    diff = lg != plg
+    n_diff = int(diff.sum())
+    tie = (pk - ppk).abs() <= 2e-3 * ppk
+    if int((diff & ~tie).sum()) or n_diff > 1e-3 * diff.numel():
+        fail(f"{name} {label}: lags differ in {n_diff} of {diff.numel()} "
+             f"cells, {int((diff & ~tie).sum())} of them with peaks more "
+             "than 2e-3 apart")
+    for c in diff.nonzero()[:5].tolist():
+        c = tuple(c)
+        log(f"  {name} {label} near-tie cell {c}: kernel lag {int(lg[c])} "
+            f"peak {float(pk[c]):.6e}, plain lag {int(plg[c])} peak "
+            f"{float(ppk[c]):.6e}")
     np.testing.assert_allclose(pk.numpy(), ppk.numpy(), **FOLD_TOL)
     np.testing.assert_allclose(tt.numpy(), ptt.numpy(), **FOLD_TOL)
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
     tflops = 8 * cmacs / (ms * 1e-3) / 1e12
     t = timing(ms, plain_ms, 8 * cmacs, nbytes)
-    log(f"{name} {label}: {desc} lags equal, max |dpeak| {err:.4e} of "
+    lags = ("lags equal" if not n_diff else
+            f"lags equal but in {n_diff} near-tie cells of {diff.numel()}")
+    log(f"{name} {label}: {desc} {lags}, max |dpeak| {err:.4e} of "
         f"peaks up to {float(ppk.max()):.4e}, max rel err {rel:.3e} (rtol "
         f"{FOLD_TOL['rtol']}), kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
         f"plain {plain_ms:.3f} ms, {bound_text(t)}")
@@ -218,10 +266,11 @@ def check_fold(fs, rows, n_acc, dev, label):
         rows * n_acc * (fwd + 32 * inv), nbytes)
 
 
-def track_case(fs, dev):
+def track_case(fs, dev, spacing=0.5):
     """``(args, kw)`` of one tracking step at rate ``fs``: 10 epochs x 12
     channels of SVs at integer-sample code shifts and random Dopplers, the
-    first two at the period edges so the early/late taps wrap."""
+    first two at the period edges so the early/late taps (``spacing``
+    chips from the prompt) wrap."""
     from tpu_gnss_torch.acquire.folded import (fft_len_for_period,
                                                period_replicas_np)
     from tpu_gnss_torch.ops import mxu_track as mt
@@ -248,7 +297,7 @@ def track_case(fs, dev):
                * np.exp(2j * np.pi * dops[c] * n / fs))
     blk = np.pad(iq.reshape(e_sub, p), ((0, 0), (0, u_rows * n1 - p)))
     blk = blk.reshape(e_sub, u_rows, n1)
-    d = 0.5 * p / 1023.0                # half-chip taps, in samples
+    d = spacing * p / 1023.0            # early/late tap offset, samples
     tau = np.broadcast_to((p - shift) % p + 0.25, (e_sub, n_chan))
     delta = np.broadcast_to(dops / fs, (e_sub, n_chan))
     phase0 = (delta * np.arange(e_sub)[:, None] * p) % 1.0
@@ -262,10 +311,10 @@ def track_case(fs, dev):
     return args, dict(period=p, nf=nf, dsamp=d)
 
 
-def check_track(fs, dev, label):
+def check_track(fs, dev, label, spacing=0.5):
     from tpu_gnss_torch.ops import mxu_track as mt
     from tpu_gnss_torch.ops.mxu_corr import four_step_np
-    args, kw = track_case(fs, dev)
+    args, kw = track_case(fs, dev, spacing)
     e_sub, n_chan = args[2].shape[:2]
     nf = kw["nf"]
     got = mt.track_corr(*args, **kw).cpu()
@@ -283,6 +332,7 @@ def check_track(fs, dev, label):
     nbytes = sum(a.numel() for a in args) * 4 + e_sub * n_chan * 24
     t = timing(ms, plain_ms, 8 * cmacs, nbytes)
     log(f"track_corr {label}: e_sub={e_sub} n_chan={n_chan} nf={nf} "
+        f"spacing {spacing} chips "
         f"({f['n1']}x{f['n2']}, u_rows {f['u_rows']}) max err={err:.3e} "
         f"= {err / ref:.2e} x max|P|={ref:.1f} (atol {TRACK_ATOL} x max|P|), "
         f"kernel {ms * 1e3:.2f} us ({8 * cmacs / (ms * 1e-3) / 1e12:.1f} "
@@ -402,30 +452,31 @@ def drive_corr_reduce(dev) -> int:
 # phases 3-4: the main path
 # ---------------------------------------------------------------------------
 
-def run_receiver(cfg, duration, tmpdir, name):
-    from tpu_gnss_torch import kernels
-    from tpu_gnss_torch.io.stream import FileSource1Bit
-    from tpu_gnss_torch.receiver import Receiver
+def build_capture(cfg, duration, tmpdir, name, iq8=False):
+    """The e2e scene recipe at ``cfg.fs`` written as a 1-bit IF capture
+    and, with ``iq8``, from the same baseband as an int8 I/Q capture.
+    Returns ``(1-bit path, int8 path or None, receiver ECEF)``."""
     from tpu_gnss_torch.signal import scene
     t0 = time.perf_counter()
     iq, _, rx = scene.build_scene(duration=duration, fs=cfg.fs)
     path = os.path.join(tmpdir, f"{name}.bin")
     scene.write_1bit_capture(iq, cfg.fc, cfg.fs, path)
+    path8 = None
+    if iq8:
+        path8 = os.path.join(tmpdir, f"{name}_iq8.bin")
+        write_iq8(iq, path8)
     del iq
     log(f"{name}: {duration:g} s scene at {cfg.fs / 1e6:g} Msps built in "
         f"{time.perf_counter() - t0:.1f} s")
-    recv = Receiver(cfg, device="cuda")
-    kernels.LAUNCHES.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = recv.process_source(FileSource1Bit(path, cfg))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: kernels.LAUNCHES.get(k)
-                for k in ("fold_corr_reduce", "track_corr", "mix_packed")}
-    log(f"{name}: wall {wall:.3f} s for {duration:g} s of signal, "
-        f"realtime factor {duration / wall:.2f}, launches {launches}")
-    return res, rx, wall, launches
+    return path, path8, rx
+
+
+def run_receiver(cfg, path, duration, name):
+    from tpu_gnss_torch.io.stream import FileSource1Bit
+    from tpu_gnss_torch.receiver import Receiver
+    res, wall, launches, _ = drive(name, Receiver(cfg, device="cuda"),
+                                   FileSource1Bit(path, cfg), duration)
+    return res, wall, launches
 
 
 # ---------------------------------------------------------------------------
@@ -572,6 +623,351 @@ def batched_scan(cfg, device, n_blocks: int = 64, n_grid: int = 8,
     return dict(ms=ms, rate=rate, grid_ms=grid_ms, grid_rate=grid_rate)
 
 
+# ---------------------------------------------------------------------------
+# phase 2b: the host->device links on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counting_uploads():
+    """Collect the byte count of every host->device upload the links make
+    (``tpu_gnss_torch.utils.xfer._upload``) while the block runs."""
+    from tpu_gnss_torch.utils import xfer
+    sent, real = [], xfer._upload
+
+    def spy(a, device):
+        sent.append(np.asarray(a).nbytes)
+        return real(a, device)
+
+    xfer._upload = spy
+    try:
+        yield sent
+    finally:
+        xfer._upload = real
+
+
+def _np_remove_dc(re, im, remove_dc):
+    if remove_dc:
+        re, im = re - re.mean(), im - im.mean()
+    return (re + 1j * im).astype(np.complex64)
+
+
+def link_reference(name, data, signed, remove_dc, scale=None) -> np.ndarray:
+    """The numpy computation of one link's arithmetic: quantize as the host
+    half does, then dequantize in float32 as the device half does."""
+    from tpu_gnss_torch.utils import xfer
+    f32 = np.float32
+    if name == "int8":
+        q = lambda a: np.clip(np.rint(a * scale), -127, 127).astype(np.int8)
+        inv = f32(1.0 / scale)
+        return _np_remove_dc(q(data.real).astype(f32) * inv,
+                             q(data.imag).astype(f32) * inv, False)
+    if name == "int4":
+        q = lambda a: np.clip(np.rint(a * scale), -7, 7).astype(f32)
+        inv = f32(1.0 / scale)
+        return _np_remove_dc(q(data.real) * inv, q(data.imag) * inv, False)
+    v = data.astype(f32) - (0.0 if signed else 128.0)
+    rms = float(np.sqrt(np.mean(np.square(v[:65536]))))
+    if name == "iq8":
+        return _np_remove_dc(v[0::2], v[1::2], remove_dc)
+    if name == "iq4":
+        s4 = 7.0 / (3.0 * rms)
+        q = np.clip(np.rint(v * s4), -7, 7)
+        inv = f32(1.0 / s4)
+        return _np_remove_dc(q[0::2].astype(f32) * inv,
+                             q[1::2].astype(f32) * inv, remove_dc)
+    # iq2: levels +-1, +-3 x rms / 1.887 at a one-RMS threshold
+    step = f32(rms / xfer._I2_RMS_DIV)
+    lvl = (np.where(np.abs(v) >= rms, f32(3), f32(1))
+           * np.where(v < 0, f32(-1), f32(1))) * step
+    return _np_remove_dc(lvl[0::2], lvl[1::2], remove_dc)
+
+
+def check_links(dev, n: int = 1 << 20) -> None:
+    """Each device dequantizer on seeded data against
+    :func:`link_reference`: the int8 and int4 planes of a complex array
+    equal, the capture-byte links (iq8, iq4, iq2, DC removed) within
+    1e-6 x max|x|.  Then each link's upload + dequantize time for ``n``
+    samples (host wall, synchronised) and its bytes per sample."""
+    import functools
+    from tpu_gnss_torch.utils import xfer
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n) + 0.2
+         ).astype(np.complex64)
+    rms = float(np.sqrt(np.mean(np.abs(x[:65536]) ** 2)))
+    s8, s4 = 127.0 / (6.0 * rms), 7.0 / (3.0 * rms)
+    # (label, upload, numpy result, DC removed)
+    cases = [("int8", lambda: xfer.to_device_complex_i8(x, s8, dev),
+              link_reference("int8", x, True, False, s8), False),
+             ("int4", lambda: xfer.to_device_complex_i4(x, s4, dev),
+              link_reference("int4", x, True, False, s4), False)]
+    for signed, raw in ((True, rng.integers(-100, 100, 2 * n).astype(np.int8)),
+                        (False, rng.integers(10, 250, 2 * n).astype(np.uint8))):
+        for link in ("iq8", "iq4", "iq2"):
+            cases.append((
+                f"{link} {raw.dtype}",
+                functools.partial(getattr(xfer, f"to_device_{link}"), raw,
+                                  signed=signed, remove_dc=True, device=dev),
+                link_reference(link, raw, signed, True), True))
+    for label, run, want, remove_dc in cases:
+        got = run().cpu()
+        want = torch.from_numpy(want)
+        if remove_dc:
+            err = float((got - want).abs().max())
+            tol = 1e-6 * float(want.abs().max())
+            if not err <= tol:
+                fail(f"link {label}: max err {err} > {tol}")
+            verdict = f"max err {err:.3e} <= 1e-6 x max|x| = {tol:.3e}"
+        else:
+            if not torch.equal(got, want):
+                fail(f"link {label}: {int((got != want).sum())} samples "
+                     "differ from the numpy dequantization")
+            verdict = "equal to the numpy dequantization"
+        with counting_uploads() as sent:
+            run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        log(f"link {label}: {n} samples, {verdict}, "
+            f"{sum(sent) / n:g} B/sample uploaded, upload + dequantize "
+            f"{ms:.3f} ms (host wall)")
+
+
+# ---------------------------------------------------------------------------
+# phases 8-12: the 8-bit I/Q path, the links, live mode, the gather path
+# ---------------------------------------------------------------------------
+
+def write_iq8(iq, path, signed=True, offset_hz=0.0, fs=None):
+    """Interleaved 8-bit I/Q capture of ``iq`` (x100 of the larger rail's
+    peak), optionally mixed by a common ``offset_hz`` first (a replay
+    capture's TX/RX oscillator offset), in 4 M-sample segments."""
+    seg = 1 << 22
+    peak = max(float(np.abs(iq.real).max()), float(np.abs(iq.imag).max()))
+    # a rotation can carry up to sqrt(2) x the larger rail's peak onto one
+    # rail: keep the rotated samples inside int8 too
+    scale = 100.0 / (peak * (1.0 if offset_hz == 0.0 else np.sqrt(2.0)))
+    with open(path, "wb") as f:
+        for s0 in range(0, len(iq), seg):
+            x = iq[s0: s0 + seg]
+            if offset_hz:
+                n = np.arange(s0, s0 + len(x), dtype=np.float64)
+                x = x * np.exp(2j * np.pi * ((offset_hz * n / fs) % 1.0))
+            raw = np.empty(2 * len(x), np.int16)
+            raw[0::2] = np.clip(np.rint(x.real * scale), -127, 127)
+            raw[1::2] = np.clip(np.rint(x.imag * scale), -127, 127)
+            (raw.astype(np.int8) if signed
+             else (raw + 128).astype(np.uint8)).tofile(f)
+
+
+RECEIVER_KERNELS = ("fold_corr_reduce", "track_corr", "mix_packed")
+
+
+def drive(name, recv, src, duration, **kw):
+    """One main-path run: counts set to 0 just before, read just after.
+    Returns ``(result, wall s, launches, receiver.transfer s)``."""
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.utils.metrics import METRICS
+    xfer_before = sum(METRICS.timings.get("receiver.transfer", []))
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = recv.process_source(src, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES.get(k) for k in RECEIVER_KERNELS}
+    xfer_s = sum(METRICS.timings.get("receiver.transfer", [])) - xfer_before
+    log(f"{name}: wall {wall:.3f} s for {duration:g} s of signal, realtime "
+        f"factor {duration / wall:.2f}, receiver.transfer {xfer_s:.3f} s, "
+        f"launches {launches}")
+    return res, wall, launches, xfer_s
+
+
+def need_launched(name, launches, kernels_of_path):
+    for k in kernels_of_path:
+        if launches[k] <= 0:
+            fail(f"{name}: kernel {k} was never launched on the path")
+
+
+def pos_error(sol, rx) -> float:
+    return float(np.linalg.norm(np.array([sol.x, sol.y, sol.z])
+                                - np.array(rx)))
+
+
+def fix_error(res, rx) -> float:
+    return pos_error(res.solutions[-1], rx) if res.solutions else float("nan")
+
+
+def locked_prns(res, min_epochs=2000):
+    from tpu_gnss_torch.track.quality import pll_lock_metric
+    return sorted(r.prn for r in res.channels
+                  if not r.lost and r.n_epochs >= min_epochs
+                  and pll_lock_metric(r.ip_hist, r.qp_hist, 1000) > 0.45)
+
+
+def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
+    """Phases 9-10: a ``duration`` s, 6-SV scene at a capture preset's
+    width (all 32 PRNs, +-100 kHz), written as 8-bit I/Q with a common
+    ``offset_hz``, through ``IQFileSource`` once per link.  Every link
+    must detect >= 4 SVs, the same PRNs as the first, with those channels
+    locked; the receiver's oscillator-offset estimate must sit within
+    250 Hz of ``offset_hz`` plus the detected SVs' true median Doppler;
+    int4 and int2 must meet the reference's bars against int8
+    (tests/test_stream.py:494-537), read after the 200-epoch pull-in and
+    up to the Costas loop's half-cycle ambiguity: on these 6-SV scenes a
+    loop may settle at the other phase, and the pull-in transients then
+    differ (whole-history figures are printed beside)."""
+    from tpu_gnss_torch import PRESETS
+    from tpu_gnss_torch.io.stream import IQFileSource
+    from tpu_gnss_torch.receiver import Receiver
+    from tpu_gnss_torch.signal import scene
+    cfg = PRESETS[preset]
+    t0 = time.perf_counter()
+    iq, ephs, rx = scene.build_scene(duration=duration, fs=cfg.fs)
+    path = os.path.join(tmpdir, f"{preset}.bin")
+    write_iq8(iq, path, signed=signed, offset_hz=offset_hz, fs=cfg.fs)
+    del iq
+    true = scene.sky_dopplers_hz(ephs, rx)
+    fmt = "int8" if signed else "uint8"
+    log(f"{preset}: {duration:g} s, 6-SV {fmt} I/Q scene at "
+        f"{cfg.fs / 1e6:g} Msps, {offset_hz:+g} Hz common offset, built in "
+        f"{time.perf_counter() - t0:.1f} s; true sky Dopplers "
+        f"{np.round(true, 1).tolist()} Hz")
+    runs = {}
+    for link in links:
+        recv = Receiver(cfg, transfer_dtype=link, device=dev)
+        with counting_uploads() as sent:
+            res, wall, launches, xfer_s = drive(
+                f"{preset} {link}", recv, IQFileSource(path, cfg.fs, fmt),
+                duration)
+        det = sorted(d["prn"] for d in res.detections)
+        locked = locked_prns(res)
+        want_off = offset_hz + float(np.median(
+            [true[p - 2] for p in det if 2 <= p < 2 + len(true)]))
+        log(f"{preset} {link}: {len(det)} detections {det}, locked "
+            f"{locked}, if_offset estimate {recv._if_offset:.1f} Hz "
+            f"(want {want_off:.1f}), {sum(sent) / duration / 1e6:.3f} MB "
+            f"uploaded per second of signal")
+        need_launched(f"{preset} {link}", launches,
+                      ("fold_corr_reduce", "track_corr"))
+        if len(det) < 4 or not set(det) <= set(locked):
+            fail(f"{preset} {link}: fewer than 4 detections, or detected "
+                 "channels not locked")
+        if runs and det != next(iter(runs.values()))["det"]:
+            fail(f"{preset} {link}: PRNs {det} differ from the first link's")
+        if not abs(recv._if_offset - want_off) < 250.0:
+            fail(f"{preset} {link}: if_offset estimate {recv._if_offset} Hz, "
+                 f"want {want_off} +- 250 Hz")
+        runs[link] = dict(det=det, res=res, wall=wall, launches=launches,
+                          transfer_s=xfer_s,
+                          bytes_per_s=sum(sent) / duration)
+    base = runs[links[0]]["res"]
+    for link, bar in (("int4", 0.05), ("int2", 0.25)):
+        if link not in runs:
+            continue
+        for a, b in zip(runs[link]["res"].channels, base.channels):
+            if (a.prn, a.start_epoch) != (b.prn, b.start_epoch):
+                fail(f"{preset} {link}: channel {a.ch} differs from int8")
+            # after the 200-epoch pull-in, and up to the Costas loop's
+            # half-cycle ambiguity: the loop is data-insensitive and may
+            # settle at either phase (frame sync reads the inverted
+            # stream the same); the whole-history figure is printed too
+            ia, ib = a.ip_hist[200:], b.ip_hist[200:]
+            flip = 1.0 if float(np.dot(ia, ib)) >= 0 else -1.0
+            rel = float(np.linalg.norm(flip * ia - ib) / np.linalg.norm(ib))
+            rel_all = float(np.linalg.norm(flip * a.ip_hist - b.ip_hist)
+                            / np.linalg.norm(b.ip_hist))
+            sign = float(np.mean(np.sign(flip * ia) == np.sign(ib)))
+            log(f"  {link} PRN {a.prn}: prompt rel after epoch 200 "
+                f"{rel:.4f} (bar {bar}; whole history {rel_all:.4f}), sign "
+                f"agreement after epoch 200 {sign:.4f}"
+                + (" (locked at the opposite Costas phase)"
+                   if flip < 0 else ""))
+            if not rel < bar or (link == "int2" and not sign > 0.98):
+                fail(f"{preset} {link} PRN {a.prn}: prompt rel {rel}, sign "
+                     f"agreement {sign}")
+    return runs
+
+
+def live_run(cfg, path, rx, duration, tmpdir, dev):
+    """Phase 11: a writer thread grows the 1-bit capture at 4x real time;
+    ``FollowSource1Bit`` with ``on_solution``, ``max_history_s=600`` and a
+    ``.done`` sidecar must deliver a fix through the callback before
+    ``process_source`` returns, the last within 60 m."""
+    import threading
+    from tpu_gnss_torch.io.stream import FollowSource1Bit
+    from tpu_gnss_torch.receiver import Receiver
+    live = os.path.join(tmpdir, "live.bin")
+    open(live, "wb").close()
+    data = open(path, "rb").read()
+    step = int(cfg.fs / 8)            # one second of signal
+    stop = threading.Event()
+
+    def writer():
+        with open(live, "ab") as f:
+            for i in range(0, len(data), step):
+                if stop.is_set():
+                    return
+                f.write(data[i: i + step])
+                f.flush()
+                time.sleep(0.25)
+        open(live + ".done", "w").close()
+
+    fixes = []
+    returned = threading.Event()
+
+    def on_solution(sol):
+        fixes.append((sol, returned.is_set()))
+        log(f"  live fix at t={sol.snap_epoch / 1000:.1f} s: {sol.n_sats} "
+            f"SVs, error {pos_error(sol, rx):.2f} m")
+
+    t = threading.Thread(target=writer, daemon=True)
+    t.start()
+    src = FollowSource1Bit(live, cfg, stall_timeout_s=30.0)
+    try:
+        res, wall, launches, _ = drive(
+            "live", Receiver(cfg, max_history_s=600.0, device=dev), src,
+            duration, on_solution=on_solution)
+    finally:
+        returned.set()
+        stop.set()
+        t.join()
+    in_stream = [s for s, late in fixes if not late]
+    err = fix_error(res, rx)
+    log(f"live: {len(in_stream)} fixes through on_solution before "
+        f"process_source returned, stalled={src.stalled}, final error "
+        f"{err:.2f} m")
+    need_launched("live", launches, RECEIVER_KERNELS)
+    if src.stalled or not in_stream:
+        fail("live: no fix delivered in-stream, or the follow stalled")
+    if not err < 60.0:
+        fail(f"live: final fix error {err} m (limit 60 m)")
+    return launches
+
+
+def gather_run(cfg, path, dev, duration=4.0):
+    """Phase 12: the gather correlator (``fft_correlator=False``) on the
+    first ``duration`` s of the e2e capture locks the channels the FFT
+    path locks."""
+    from tpu_gnss_torch.io.stream import FileSource1Bit
+    from tpu_gnss_torch.receiver import Receiver
+    out = {}
+    for name, fft in (("fft", True), ("gather", False)):
+        res, _, launches, _ = drive(
+            f"e2e {duration:g} s {name}",
+            Receiver(cfg, fft_correlator=fft, device=dev),
+            FileSource1Bit(path, cfg), duration, max_duration_s=duration)
+        need_launched(name, launches, ("fold_corr_reduce", "mix_packed")
+                      + (("track_corr",) if fft else ()))
+        if not fft and launches["track_corr"]:
+            fail("gather: track_corr launched on the gather path")
+        out[name] = locked_prns(res)
+    log(f"gather: locked {out['gather']}, FFT path locked {out['fft']}")
+    if len(out["fft"]) < 4 or out["gather"] != out["fft"]:
+        fail("gather: locked channels differ from the FFT path's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -580,7 +976,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_gnss_torch import PRESETS, ReceiverConfig, kernels
     from tpu_gnss_torch.acquire.folded import FoldedSearcher
-    from tpu_gnss_torch.track.quality import pll_lock_metric
 
     # --- phase 1: card and software -------------------------------------
     smi = subprocess.run(
@@ -604,39 +999,57 @@ def main() -> int:
 
     # --- phase 2: kernels against their plain versions -------------------
     live = PRESETS["live"]
-    live_rows = len(FoldedSearcher(live, device=dev).dops_hz)
-    fold_e2e = check_fold(2.048e6, 41, 1, dev, "e2e")
+    rows = {k: len(FoldedSearcher(PRESETS[k], device=dev).dops_hz)
+            for k in ("live", "hackrf", "rtlsdr")}
+    shapes = {k: {} for k in ("fold_corr_reduce", "corr_reduce",
+                              "track_corr", "mix_packed")}
+    fold_e2e = shapes["fold_corr_reduce"]["e2e"] = check_fold(
+        2.048e6, 41, 1, dev, "e2e")
     check_fold(2.048e6, 41, 8, dev, "e2e-weak")
     check_fold(5.456e6, 73, 1, dev, "nottingham")
     check_fold(PRESETS["synthetic"].fs, 49, 1, dev, "synthetic")
-    check_fold(live.fs, live_rows, 1, dev, "live")
+    check_fold(live.fs, rows["live"], 1, dev, "live")
+    for k in ("hackrf", "rtlsdr"):
+        shapes["fold_corr_reduce"][k] = check_fold(PRESETS[k].fs, rows[k], 1,
+                                                   dev, k)
     profile_fold_split(dev)
-    cr_e2e = check_corr_reduce(2.048e6, 41, 1, dev, "e2e")
+    cr_e2e = shapes["corr_reduce"]["e2e"] = check_corr_reduce(
+        2.048e6, 41, 1, dev, "e2e")
     check_corr_reduce(2.048e6, 41, 8, dev, "e2e-weak")
     check_corr_reduce(5.456e6, 73, 1, dev, "nottingham")
     check_corr_reduce(PRESETS["synthetic"].fs, 49, 1, dev, "synthetic")
-    check_corr_reduce(live.fs, live_rows, 1, dev, "live")
+    check_corr_reduce(live.fs, rows["live"], 1, dev, "live")
     check_corr_reduce(12.5e6, 41, 1, dev, "odd-n1")
+    for k in ("hackrf", "rtlsdr"):
+        shapes["corr_reduce"][k] = check_corr_reduce(PRESETS[k].fs, rows[k],
+                                                     1, dev, k)
     cr_launches = drive_corr_reduce(dev)
-    track_e2e = check_track(2.048e6, dev, "e2e")
+    track_e2e = shapes["track_corr"]["e2e"] = check_track(2.048e6, dev, "e2e")
     check_track(5.456e6, dev, "nottingham")
     check_track(12.5e6, dev, "odd-n1")
-    mix_e2e = check_mix(2.048e6, 1.0, 2_048_000, 0, dev, "e2e")
+    for k in ("hackrf", "rtlsdr"):
+        shapes["track_corr"][k] = check_track(PRESETS[k].fs, dev, k)
+    shapes["track_corr"]["e2e-spacing-0.25"] = check_track(
+        2.048e6, dev, "e2e-spacing-0.25", spacing=0.25)
+    mix_e2e = shapes["mix_packed"]["e2e"] = check_mix(
+        2.048e6, 1.0, 2_048_000, 0, dev, "e2e")
     check_mix(5.456e6, 3.0, 5_456_000, 0, dev, "nottingham")
     check_mix(live.fs, live.lo_rate, 10_000_000 - 7, 1_000_000_007, dev,
               "live")
+    # --- phase 2b: the links on the card ---------------------------------
+    check_links(dev)
 
+    by_run = {}
     with tempfile.TemporaryDirectory() as tmp:
         # --- phase 3: main path, e2e geometry ----------------------------
         fs = 2.048e6
         cfg = ReceiverConfig(fs=fs, fc=fs / 4, max_fo=5000.0, fft_len=4096,
                              snr_threshold=17.0, num_chans=12)
-        res, rx, wall, launches = run_receiver(cfg, 20.0, tmp, "e2e")
+        path_e2e, path_e2e8, rx = build_capture(cfg, 20.0, tmp, "e2e",
+                                                iq8=True)
+        res, wall, launches = run_receiver(cfg, path_e2e, 20.0, "e2e")
         decoded = [r for r in res.channels if r.eph.valid()]
-        err = (float(np.linalg.norm(np.array(
-            [res.solutions[-1].x, res.solutions[-1].y,
-             res.solutions[-1].z]) - np.array(rx)))
-            if res.solutions else float("nan"))
+        err = fix_error(res, rx)
         log(f"e2e: {len(res.detections)} detections "
             f"{sorted(d['prn'] for d in res.detections)}, "
             f"{len(decoded)} ephemerides, {len(res.solutions)} fixes, "
@@ -645,28 +1058,59 @@ def main() -> int:
             fail("e2e: fewer than 4 detections or ephemerides")
         if not err < 60.0:
             fail(f"e2e: final fix error {err} m (limit 60 m)")
+        by_run["e2e 1-bit 20 s"] = launches
         # --- phase 4: main path, nottingham geometry ---------------------
         cfg_n = ReceiverConfig(fs=5.456e6, fc=4.092e6, max_fo=5000.0,
                                num_chans=12)
-        res_n, _, wall_n, launches_n = run_receiver(cfg_n, 4.0, tmp,
-                                                    "nottingham")
-        locked = [r.prn for r in res_n.channels
-                  if not r.lost and r.n_epochs >= 2000
-                  and pll_lock_metric(r.ip_hist, r.qp_hist, 1000) > 0.45]
+        path_n, _, _ = build_capture(cfg_n, 4.0, tmp, "nottingham")
+        res_n, wall_n, launches_n = run_receiver(cfg_n, path_n, 4.0,
+                                                 "nottingham")
+        locked = locked_prns(res_n)
         det_n = sorted(d["prn"] for d in res_n.detections)
-        log(f"nottingham: {len(det_n)} detections {det_n}, "
-            f"locked {sorted(locked)}")
+        log(f"nottingham: {len(det_n)} detections {det_n}, locked {locked}")
         if len(det_n) < 4 or not set(det_n) <= set(locked):
             fail("nottingham: fewer than 4 detections, or detected "
                  "channels not locked")
+        by_run["nottingham 1-bit 4 s"] = launches_n
+        # --- phase 5: launch counters -----------------------------------
+        for run, counts in (("e2e", launches), ("nottingham", launches_n)):
+            need_launched(run, counts, RECEIVER_KERNELS)
+        log("launch counters: every receiver kernel launched in both "
+            "1-bit main-path runs")
 
-    # --- phase 5: launch counters ---------------------------------------
-    for run, counts in (("e2e", launches), ("nottingham", launches_n)):
-        for k, n in counts.items():
-            if n <= 0:
-                fail(f"{run}: kernel {k} was never launched on the path")
-    log("launch counters: every receiver kernel launched in both "
-        "main-path runs")
+        # --- phase 8: the e2e scene as an 8-bit I/Q capture --------------
+        from tpu_gnss_torch.io.stream import IQFileSource
+        from tpu_gnss_torch.receiver import Receiver
+        res8, wall8, launches8, xfer8 = drive(
+            "e2e iq8", Receiver(cfg, device=dev),
+            IQFileSource(path_e2e8, fs, "int8"), 20.0)
+        decoded8 = [r for r in res8.channels if r.eph.valid()]
+        err8 = fix_error(res8, rx)
+        log(f"e2e iq8: {len(res8.detections)} detections "
+            f"{sorted(d['prn'] for d in res8.detections)}, "
+            f"{len(decoded8)} ephemerides, {len(res8.solutions)} fixes, "
+            f"final error {err8:.2f} m (int8 link: the capture's own bytes)")
+        need_launched("e2e iq8", launches8, ("fold_corr_reduce",
+                                             "track_corr"))
+        if len(res8.detections) < 4 or len(decoded8) < 4 or not err8 < 60.0:
+            fail(f"e2e iq8: fewer than 4 detections or ephemerides, or "
+                 f"final fix error {err8} m (limit 60 m)")
+        by_run["e2e int8 I/Q 20 s"] = launches8
+
+        # --- phase 9: full width at the hackrf preset, every link --------
+        runs9 = iq_preset_run("hackrf", 4.0, 25e3, True,
+                              ("int8", "int4", "int2", "float32"), tmp, dev)
+        for link, r in runs9.items():
+            by_run[f"hackrf {link} 4 s"] = r["launches"]
+        # --- phase 10: the rtlsdr preset, uint8 through the int8 link ----
+        runs10 = iq_preset_run("rtlsdr", 4.0, -18e3, False, ("int8",), tmp,
+                               dev)
+        by_run["rtlsdr int8 4 s"] = runs10["int8"]["launches"]
+        # --- phase 11: live mode ----------------------------------------
+        by_run["live 1-bit follow 20 s"] = live_run(cfg, path_e2e, rx, 20.0,
+                                                    tmp, dev)
+        # --- phase 12: the gather correlator -----------------------------
+        gather_run(cfg, path_e2e, dev)
 
     # --- phase 6: the folded search API at the nottingham geometry ------
     folded_search(cfg_n, dev)
@@ -676,28 +1120,31 @@ def main() -> int:
         f"({scan['ms']:.1f} ms for 64 blocks) on {smi}")
 
     e2e_run = "e2e receiver run (phase 3)"
+    entry = lambda name: dict(
+        launches_by_run={run: c[name] for run, c in by_run.items()},
+        shapes=shapes[name])
     kern = [
         dict(name="fold_corr_reduce", route="cuda",
              source="tpu_gnss_torch/csrc/fold_corr_reduce.cu",
              replaces="tpu_gnss/ops/mxu_corr.py:377",
              launches=launches["fold_corr_reduce"], launch_run=e2e_run,
-             **fold_e2e),
+             **fold_e2e, **entry("fold_corr_reduce")),
         dict(name="track_corr", route="cuda",
              source="tpu_gnss_torch/csrc/track_corr.cu",
              replaces="tpu_gnss/ops/mxu_track.py:376",
              launches=launches["track_corr"], launch_run=e2e_run,
-             **track_e2e),
+             **track_e2e, **entry("track_corr")),
         dict(name="mix_packed", route="cuda",
              source="tpu_gnss_torch/csrc/mix_packed.cu",
              replaces="tpu_gnss/ops/onebit.py:175",
              launches=launches["mix_packed"], launch_run=e2e_run,
-             **mix_e2e),
+             **mix_e2e, **entry("mix_packed")),
         dict(name="corr_reduce", route="cuda",
              source="tpu_gnss_torch/csrc/corr_reduce.cu",
              replaces="tpu_gnss/ops/mxu_corr.py:430",
              launches=cr_launches,
              launch_run="op call at the e2e shape (no caller in either "
-                        "package)", **cr_e2e),
+                        "package)", **cr_e2e, shapes=shapes["corr_reduce"]),
     ]
     log(smi)                  # as nvidia-smi gives it
     print(json.dumps({"kernels": kern}), flush=True)

@@ -27,6 +27,7 @@ from tpu_gnss.acquire import folded as jf
 from tpu_gnss.config import ReceiverConfig
 from tpu_gnss.signal import synth
 from tpu_gnss_torch.acquire import folded as tf
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = ReceiverConfig(fs=2.048e6, fc=0.512e6, max_fo=5000.0, fft_len=4096)
 MXU_CFG = ReceiverConfig(fs=1.024e6, fc=0.256e6, max_fo=5000.0, fft_len=4096)

@@ -32,6 +32,7 @@ from tpu_gnss_torch.pvt import solve as tps
 from tpu_gnss_torch.signal import cacode as tca
 from tpu_gnss_torch.signal import scene
 from tpu_gnss_torch.signal import synth as tsy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 _DERIVED = ("lags", "dop_max_bin", "num_dop_bins", "dop_bin_hz",
             "samples_per_ms", "ca_rate", "lo_rate")
@@ -176,3 +177,80 @@ def test_solve_raim_and_sat_geometry_equal(n_sv):
     assert sorted(gd) == sorted(wd) == ["gdop", "hdop", "pdop", "vdop"]
     for k in wd:
         np.testing.assert_allclose(gd[k], wd[k], rtol=0, atol=1e-9)
+
+
+def test_xfer_host_halves_equal():
+    """The links' host quantizers are the reference's numpy code."""
+    from tpu_gnss.utils import xfer as jx
+    from tpu_gnss_torch.utils import xfer as tx
+    rng = np.random.default_rng(8)
+    qi = rng.integers(-7, 8, 999).astype(np.int8)
+    qq = rng.integers(-7, 8, 999).astype(np.int8)
+    np.testing.assert_array_equal(tx._pack_nibbles(qi, qq),
+                                  jx._pack_nibbles(qi, qq))
+    v = rng.standard_normal(5000).astype(np.float32) * 30.0
+    np.testing.assert_array_equal(tx._i2_code(v, 29.0), jx._i2_code(v, 29.0))
+    assert tx._I2_RMS_DIV == jx._I2_RMS_DIV
+
+
+def _solutions(ps):
+    """Two fixes of the reference's NMEA tests (tests/test_nmea.py:94-110),
+    built from package ``ps``'s Solution types; the second in the
+    southern/western hemispheres without velocity or satellites."""
+    out = []
+    for lat, lon, alt in ((52.95, -1.15, 48.0), (-33.9, -70.7, 520.0)):
+        x, y, z = ps.geodetic_to_ecef(lat, lon, alt)
+        out.append(ps.Solution(x=x, y=y, z=z, t_bias=1e-4, t_rx=302405.0,
+                               iterations=5, converged=True, lat_deg=lat,
+                               lon_deg=lon, alt_m=alt, n_sats=6,
+                               residual_rms_m=2.5))
+    sol = out[0]
+    sol.vel = ps.VelocitySolution(
+        vx=0, vy=0, vz=0, clk_drift=0.0, ve=3.0 * np.sin(np.radians(45.0)),
+        vn=3.0 * np.cos(np.radians(45.0)), vu=0.0, speed_mps=3.0,
+        course_deg=45.0, n_sats=6)
+    sol.dops = dict(pdop=2.1, hdop=1.2, vdop=1.7)
+    sol.sats = [dict(prn=p, elev_deg=20.0 + 7 * i, az_deg=40.0 * i,
+                     cn0_dbhz=44.0, used=i != 3)
+                for i, p in enumerate([2, 5, 12, 17, 24, 28])]
+    return out
+
+
+@pytest.mark.parametrize("leap_s", [None, 18])
+def test_nmea_writer_equal(tmp_path, leap_s):
+    """The port's NMEA writer emits the reference's sentences byte for
+    byte (bursts, leap seconds, track files)."""
+    got_s, want_s = _solutions(tps), _solutions(jps)
+    for g, w in zip(got_s, want_s):
+        assert (tnmea.solution_burst(g, week=2345, leap_s=leap_s)
+                == jnmea.solution_burst(w, week=2345, leap_s=leap_s))
+    assert tnmea.gps_to_utc(297, 302405.0) == jnmea.gps_to_utc(297, 302405.0)
+    assert tnmea.checksum("GPGGA,1,2") == jnmea.checksum("GPGGA,1,2")
+    n_t = tnmea.write_track(str(tmp_path / "t.nmea"), got_s, leap_s=leap_s)
+    n_j = jnmea.write_track(str(tmp_path / "j.nmea"), want_s, leap_s=leap_s)
+    assert n_t == n_j == 10
+    assert ((tmp_path / "t.nmea").read_bytes()
+            == (tmp_path / "j.nmea").read_bytes())
+
+
+def test_iq_log_and_solution_line_equal(tmp_path):
+    from tpu_gnss.utils import metrics as jm
+    from tpu_gnss_torch.utils import metrics as tm
+
+    class Rec:
+        def __init__(self, prn, seed):
+            rng = np.random.default_rng(seed)
+            self.prn = prn
+            self.ip_hist, self.qp_hist = rng.standard_normal((2, 300))
+            self.code_freq_hist = 1.023e6 + rng.standard_normal(300)
+
+    recs = [Rec(5, 0), Rec(9, 1), Rec(5, 2)]
+    tm.save_iq_log(str(tmp_path / "t.npz"), recs)
+    jm.save_iq_log(str(tmp_path / "j.npz"), recs)
+    got, want = np.load(tmp_path / "t.npz"), np.load(tmp_path / "j.npz")
+    assert sorted(got.files) == sorted(want.files)
+    assert "prn05_seg2_ip" in got.files
+    for k in want.files:
+        np.testing.assert_array_equal(got[k], want[k])
+    for g, w in zip(_solutions(tps), _solutions(jps)):
+        assert tm.solution_line(g) == jm.solution_line(w)

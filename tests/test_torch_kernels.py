@@ -15,6 +15,7 @@ import torch
 
 from tpu_gnss_torch import kernels
 from tpu_gnss_torch.ops import mxu_corr, mxu_track, onebit
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _calls(device):

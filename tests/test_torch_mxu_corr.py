@@ -16,6 +16,7 @@ import torch
 from tpu_gnss.ops import mxu_corr as jm
 from tpu_gnss.signal import cacode
 from tpu_gnss_torch.ops import mxu_corr as tm
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _case(nf, period, n_sv, rows, n_acc, seed):

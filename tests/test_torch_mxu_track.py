@@ -26,6 +26,7 @@ from tpu_gnss_torch.track.channel import code_spectra_np
 
 from .test_torch_mxu_corr import _stage_pair
 from .test_torch_track import _run_both
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(fs, prns, chips, dops, e_sub, seed):

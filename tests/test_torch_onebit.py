@@ -20,6 +20,7 @@ from tpu_gnss.io import loaders
 from tpu_gnss.ops import onebit as jo
 from tpu_gnss_torch.acquire.search import mix_baseband
 from tpu_gnss_torch.ops import onebit as to
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 E2E = ReceiverConfig(fs=2.048e6, fc=0.512e6)
 

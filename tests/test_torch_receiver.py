@@ -17,6 +17,7 @@ from tpu_gnss_torch.io.stream import FileSource1Bit
 from tpu_gnss_torch.receiver import Receiver
 from tpu_gnss_torch.signal import scene
 from tpu_gnss_torch.track.quality import pll_lock_metric
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FS = scene.FS
 CFG = ReceiverConfig(fs=FS, fc=FS / 4, max_fo=5000.0, fft_len=4096,
@@ -65,13 +66,14 @@ def test_scene_copy_is_sample_identical():
 
 
 def test_unported_options_raise():
+    """``mesh`` is not ported; a link name the reference does not know
+    (``complex64`` among them) is refused."""
     with pytest.raises(NotImplementedError):
         Receiver(CFG, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Receiver(CFG, transfer_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Receiver(CFG, device="cpu").process_source(
-            FileSource1Bit("unused.bin", CFG), on_solution=print)
+    for name in ("complex64", "int16", ""):
+        with pytest.raises(ValueError, match="transfer_dtype"):
+            Receiver(CFG, transfer_dtype=name, device="cpu")
+    assert Receiver(CFG, device="cpu").transfer_dtype == "int8"
 
 
 def test_cuda_device_without_card_raises():
@@ -82,13 +84,40 @@ def test_cuda_device_without_card_raises():
 
 
 def test_process_iq_array_source():
-    """Complex captures upload as complex64 (ArraySource path)."""
+    """Complex captures cross the default int8 link (ArraySource path)."""
     iq, _, _ = scene.build_scene(duration=1.0, n_sv=4, seed=3)
     cfg = ReceiverConfig(fs=FS, fc=FS / 4, max_fo=5000.0, fft_len=4096,
                          snr_threshold=20.0)
-    res = Receiver(cfg, device="cpu").process_iq(iq, chunk_s=0.5)
+    recv = Receiver(cfg, device="cpu")
+    assert recv.transfer_dtype == "int8"
+    res = recv.process_iq(iq, chunk_s=0.5)
     assert {d["prn"] for d in res.detections} == {2, 3, 4, 5}
     assert all(r.n_epochs == 1000 for r in res.channels)
+
+
+def test_default_link_matches_jax():
+    """Both packages' default constructors run ``process_iq`` on one seeded
+    scene: same PRNs, same locked channels, NAV-bit signs agreeing after
+    epoch 200, and prompt histories within 1e-4.  The bound holds only
+    when both quantize to int8 planes at the same scale: exact complex64
+    samples differ from the reference's int8 planes by 5e-4 here."""
+    from tpu_gnss.receiver import Receiver as JaxReceiver
+    iq, _, _ = scene.build_scene(duration=2.0, n_sv=4, seed=9)
+    got = Receiver(CFG, device="cpu").process_iq(iq)
+    want = JaxReceiver(CFG).process_iq(iq)
+    assert len(got.detections) >= 4
+    assert ({d["prn"] for d in got.detections}
+            == {d["prn"] for d in want.detections})
+    lock = lambda res: {(r.ch, r.prn) for r in res.channels
+                        if pll_lock_metric(r.ip_hist, r.qp_hist, 1000) > 0.45}
+    assert len(lock(got)) >= 4 and lock(got) == lock(want)
+    assert len(got.channels) == len(want.channels)
+    for a, b in zip(got.channels, want.channels):
+        assert (a.ch, a.prn) == (b.ch, b.prn)
+        assert np.mean(np.sign(a.ip_hist[200:])
+                       == np.sign(b.ip_hist[200:])) > 0.98
+        assert (np.linalg.norm(a.ip_hist - b.ip_hist)
+                < 1e-4 * np.linalg.norm(b.ip_hist))
 
 
 @pytest.mark.slow

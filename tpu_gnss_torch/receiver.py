@@ -12,30 +12,36 @@ correlator outputs are fetched, so host decode and bookkeeping overlap
 device compute (the reference SPI pipelining, c/spi.cpp:34-53).  Uploads
 run in the prefetch thread, the blocking device-to-host copies in a
 fetch thread, and re-acquisition searches in a worker thread; all device
-work goes to the default stream.  1-bit captures cross to the device as
-their own packed words (1 bit per sample); each whole chunk is unpacked
-and mixed there in one pass by :func:`tpu_gnss_torch.ops.onebit.mix_packed`
-(the CUDA kernel on a card), and a ragged final chunk is mixed from its
-bits by :func:`tpu_gnss_torch.acquire.search.mix_baseband`.  Acquisition
-uses the fused-kernel engine of :mod:`tpu_gnss_torch.acquire.folded`
-(``detections_refined_fast``).
+work goes to the default stream.
 
-Channel management, the power watchdog, code-locked transmit
-time, Hatch smoothing, RAIM and the solve cadence are the reference's
-host code (numpy, float64), copied in its offline (decode once at the
-end) form.
+What crosses to the device is the capture's smallest form
+(:mod:`tpu_gnss_torch.utils.xfer`): 1-bit captures as their own packed
+words, unpacked and mixed there by
+:func:`tpu_gnss_torch.ops.onebit.mix_packed` (the CUDA kernel on a card;
+a ragged final chunk is mixed from its bits by
+:func:`tpu_gnss_torch.acquire.search.mix_baseband`); 8-bit I/Q captures as
+their own bytes (``transfer_dtype`` "int8") or requantized to nibbles
+("int4") or 2-bit codes ("int2"); complex arrays as int8 planes (the
+default), nibbles, 2-bit codes or exact complex64 ("float32").  The
+dequantization runs on the device.
 
-Not ported yet (each raises ``NotImplementedError`` when asked for):
-a device mesh, the int8/int4/int2 and raw 8-bit I/Q links, and live
-in-stream solving (``on_solution``).  Warm start (``warm_ephemerides``,
-the almanac-directed ``search_prns``), history bounding
-(``max_history_s``), the strong-signal AGC and the option to turn the
-solver's quality gate off are not ported either: the loop, watchdog and
-gate settings are the reference's defaults, as module constants.
+Acquisition uses the fused-kernel engine of
+:mod:`tpu_gnss_torch.acquire.folded` (``detections_refined_fast``) or,
+with ``acq_engine="xla"`` or a transform length the kernel cannot factor,
+the FFT grid engine.  Channel management, the power and probation
+watchdogs, code-locked transmit time, Hatch smoothing, RAIM, the solve
+cadence, the incremental NAV decode and the trimmed-history bookkeeping
+are the reference's host code (numpy, float64).  With ``on_solution``
+(live mode) NAV decode and PVT run in-stream at the solve cadence.
+
+Not ported yet: a device mesh (``mesh`` raises ``NotImplementedError``)
+and warm start (``warm_ephemerides``, the almanac-directed
+``search_prns``).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import threading
 from collections import deque
@@ -59,38 +65,21 @@ from .nav.ephemeris import Ephemeris, resolve_week
 from .ops.onebit import mix_packed, words_to_tensor
 from .pvt import solve as pvt
 from .track import channel as tc
+from .track.quality import cn0_nwpr, pll_lock_metric
+from .utils import xfer
 from .utils.metrics import METRICS
 
 
 _HIST_KEYS = ("ip", "qp", "cf", "caf", "chips")
 
-# Settings: the defaults of tpu_gnss.receiver.Receiver
-# (tpu_gnss/receiver.py:263-284), which no caller of the port changes.
-PLL_BN_HZ = 18.0
-DLL_BN_HZ = 2.0
-N_COHERENT = 4               # code periods per coherent acquisition fold
-SOLVE_INTERVAL_S = 4.0
-LOS_POWER_RATIO = 0.05       # watchdog: loss below this share of the
-LOS_TIMEOUT_S = 2.0          # reference power, over this window
-EPOCHS_PER_STEP = 10         # 1 ms epochs per tracking step
-REACQ_INTERVAL_S = 5.0
-# weak-signal escalation: a cold search that finds fewer than
-# WEAK_MIN_SVS SVs retries with WEAK_NONCOHERENT blocks summed
-# non-coherently (tpu_gnss/receiver.py:317-331)
-WEAK_MIN_SVS = 4
-WEAK_NONCOHERENT = 8
-# solver inclusion gates (tpu_gnss/receiver.py:341-370)
-CN0_GATE_DBHZ = 25.0
-LOCK_GATE = 0.45
-CODE_LOCK_GATE = 1.3
-RAIM_RESIDUAL_M = 500.0
+#: link names of ``Receiver(transfer_dtype=)``, as the reference's
+TRANSFER_DTYPES = ("int8", "int4", "int2", "float32")
+ACQ_ENGINES = ("auto", "mxu", "xla")
 
 
 # ChannelRecord and ReceiverResult: copied from tpu_gnss/receiver.py:55-257;
 # append_hist keeps only the device-phase chip integral (the reference's
-# command-integral fallback has no caller here), and history is never
-# trimmed (the reference's trim_to / max_history_s are not ported), so
-# index i of every history is channel epoch i
+# command-integral fallback has no caller here)
 @dataclasses.dataclass
 class ChannelRecord:
     """Host-side per-channel bookkeeping (the CHANNEL struct analog).
@@ -122,6 +111,9 @@ class ChannelRecord:
     partial_anchors: list = dataclasses.field(default_factory=list)
     lost: bool = False
     n_epochs: int = 0
+    trim_epochs: int = 0          # epochs dropped from the history front
+    _decoded_upto: int = 0        # absolute epoch the last NAV pass covered
+    archived_subframes: list = dataclasses.field(default_factory=list)
     _chunks: dict = dataclasses.field(
         default_factory=lambda: {k: [] for k in _HIST_KEYS})
     _cat: dict = dataclasses.field(default_factory=dict)
@@ -169,8 +161,11 @@ class ChannelRecord:
         self._cat.clear()
 
     def hist(self, key: str) -> np.ndarray:
-        """Whole history, index = channel epoch (cached until the next
-        append)."""
+        """Retained history (cached until the next append/trim).
+
+        Index i holds epoch ``trim_epochs + i`` (channel-relative);
+        use :meth:`abs_slice` for absolute-epoch windows.
+        """
         got = self._cat.get(key)
         if got is None:
             parts = self._chunks[key]
@@ -180,8 +175,32 @@ class ChannelRecord:
         return got
 
     def abs_slice(self, key: str, lo: int, hi: int) -> np.ndarray:
-        """History window by channel epochs [lo, hi)."""
-        return self.hist(key)[max(lo, 0): max(hi, 0)]
+        """History window by ABSOLUTE channel epochs [lo, hi)."""
+        t = self.trim_epochs
+        return self.hist(key)[max(lo - t, 0): max(hi - t, 0)]
+
+    def abs_at(self, key: str, e: int):
+        """History value at absolute channel epoch ``e``."""
+        return self.hist(key)[e - self.trim_epochs]
+
+    def trim_to(self, keep_epochs: int) -> None:
+        """Bound retained history to ~the last ``keep_epochs`` epochs.
+
+        Whole leading chunks are dropped (no copies); the absolute
+        epoch <-> array index mapping shifts by ``trim_epochs``.
+        Transmit-time anchors survive trimming because a_edge is an
+        ABSOLUTE chip count (period-grid bit sync) — anchors decoded
+        from since-trimmed history are moved to ``archived_subframes``
+        by the next NAV decode pass.
+        """
+        while self._chunks["ip"]:
+            head = len(self._chunks["ip"][0])
+            if self.n_epochs - (self.trim_epochs + head) < keep_epochs:
+                break
+            for k in _HIST_KEYS:
+                self._chunks[k].pop(0)
+            self.trim_epochs += head
+            self._cat.clear()
 
     def tail(self, key: str, n: int) -> np.ndarray:
         """Last ``n`` epochs of one history without a full concat."""
@@ -199,15 +218,20 @@ class ChannelRecord:
         """Code-lock ratio of the chunk containing channel epoch e_local.
 
         Returns None when no contemporaneous measurement exists (the
-        snapshot trails the last drained chunk by more than one chunk) —
-        callers skip the gate then.
+        snapshot predates the history or trails the last drained chunk
+        by more than one chunk) — callers skip the gate then.
         """
-        import bisect
         h = self.code_lock_hist
         if not h:
             return self.code_lock
         i = bisect.bisect_left(h, e_local, key=lambda t: t[0])
         if i < len(h):
+            if i == 0 and len(h) > 1:
+                # history head may have been trimmed: only trust the
+                # first entry for epochs inside its own chunk
+                span0 = h[1][0] - h[0][0]
+                if e_local <= h[0][0] - span0:
+                    return None
             return h[i][1]
         span = h[-1][0] - (h[-2][0] if len(h) > 1 else 0)
         return h[-1][1] if e_local - h[-1][0] <= max(span, 1) else None
@@ -238,39 +262,110 @@ class ReceiverResult:
 
 
 class Receiver:
-    """Offline full-chain receiver for complex-baseband or 1-bit captures.
+    """Full-chain receiver for complex-baseband, 8-bit I/Q or 1-bit captures.
 
-    Runs with the default settings of :class:`tpu_gnss.receiver.Receiver`
-    (the module constants above); ``device`` says where the device
-    stages run and is required.  ``mesh`` and any ``transfer_dtype`` but
-    complex64 raise ``NotImplementedError``.
+    Takes every setting of :class:`tpu_gnss.receiver.Receiver`
+    (tpu_gnss/receiver.py:263-389) with the same defaults; ``device`` says
+    where the device stages run and is required.  ``transfer_dtype`` names
+    the complex-capture link: "int8" (the default: int8 planes at a
+    per-chunk 6-sigma scale, or an 8-bit capture's own bytes), "int4"
+    (packed nibbles), "int2" (2-bit sign/magnitude codes) or "float32"
+    (exact samples).  An unknown link or ``acq_engine`` raises
+    ``ValueError``; ``mesh`` raises ``NotImplementedError``.
     """
 
-    def __init__(self, cfg: ReceiverConfig,
-                 transfer_dtype: str = "complex64", mesh=None, *, device):
+    def __init__(self, cfg: ReceiverConfig, pll_bn_hz: float = 18.0,
+                 dll_bn_hz: float = 2.0, n_coherent: int = 4,
+                 solve_interval_s: float = 4.0,
+                 los_power_ratio: float = 0.05,
+                 los_timeout_s: float = 2.0,
+                 epochs_per_step: int = 10,
+                 reacq_interval_s: float = 5.0,
+                 fft_correlator: bool = True,
+                 agc_thresholds: Optional[tuple] = None,
+                 acq_engine: str = "auto",
+                 weak_min_svs: int = 4,
+                 weak_noncoherent: int = 8,
+                 transfer_dtype: str = "int8",
+                 quality_gate: bool = True,
+                 cn0_gate_dbhz: float = 25.0,
+                 lock_gate: float = 0.45,
+                 raim_residual_m: float = 500.0,
+                 max_history_s: Optional[float] = None,
+                 probation_s: float = 30.0,
+                 code_lock_gate: float = 1.3,
+                 if_offset_hz="auto",
+                 mesh=None, *, device):
         if mesh is not None:
             raise NotImplementedError("mesh mode is not ported yet")
-        if transfer_dtype != "complex64":
-            raise NotImplementedError(
-                f"the {transfer_dtype} uplink is not ported yet; complex "
-                "captures upload as complex64")
+        if transfer_dtype not in TRANSFER_DTYPES:
+            raise ValueError(f"transfer_dtype must be one of "
+                             f"{TRANSFER_DTYPES}, got {transfer_dtype!r}")
+        if acq_engine not in ACQ_ENGINES:
+            raise ValueError(f"acq_engine must be one of {ACQ_ENGINES}, "
+                             f"got {acq_engine!r}")
         full_precision_matmul()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.searcher = FoldedSearcher(cfg, n_coherent=N_COHERENT,
+        self.searcher = FoldedSearcher(cfg, n_coherent=n_coherent,
                                        device=self.device)
+        # almanac store: subframe 4/5 pages and reductions of every
+        # validated ephemeris (tpu_gnss/receiver.py:292-298)
         self.almanac = {}
-        t_s = EPOCHS_PER_STEP * 1e-3
-        self.pll_gains = tc.second_order_gains(PLL_BN_HZ, t_s=t_s)
-        self.dll_gains = tc.second_order_gains(DLL_BN_HZ, t_s=t_s)
+        t_s = epochs_per_step * 1e-3
+        self.pll_gains = tc.second_order_gains(pll_bn_hz, t_s=t_s)
+        self.dll_gains = tc.second_order_gains(dll_bn_hz, t_s=t_s)
+        self.epochs_per_step = epochs_per_step
+        self.solve_interval_s = solve_interval_s
+        self.los_power_ratio = los_power_ratio
+        self.los_timeout_s = los_timeout_s
+        self.reacq_interval_s = reacq_interval_s
+        # False: the reference-style gather correlator (code tables, no
+        # spectra) in place of the FFT-dot taps of track_corr
+        self.fft_correlator = fft_correlator
+        # strong-signal Costas gain reduction, (lo, hi) on the running
+        # prompt power (reference: c/channel.cpp:265-288)
+        self.agc_thresholds = (tuple(agc_thresholds)
+                               if agc_thresholds is not None else None)
+        self.acq_engine = acq_engine
+        # weak-signal escalation: a single-block search finding fewer than
+        # weak_min_svs SVs retries with weak_noncoherent blocks summed
+        # non-coherently (tpu_gnss/receiver.py:317-331)
+        self.weak_min_svs = weak_min_svs
+        self.weak_noncoherent = weak_noncoherent
+        self.transfer_dtype = transfer_dtype
+        # solver inclusion gates and C/N0 weighting (the probation
+        # analog, reference: c/channel.cpp:39,343,363)
+        self.quality_gate = quality_gate
+        self.cn0_gate_dbhz = cn0_gate_dbhz
+        self.lock_gate = lock_gate
+        self.raim_residual_m = raim_residual_m
         self._resid_hist = deque(maxlen=32)
-        # replay-capture oscillator offset, estimated from the cold-start
-        # Doppler median when that exceeds 10 kHz (the reference's "auto")
-        self._if_offset = 0.0
-        self._if_offset_locked = False
+        # live streams: per-channel history bounded to this many seconds
+        # (None keeps everything)
+        self.max_history_s = max_history_s
+        # seconds of decoded stream with no parity-valid subframe before a
+        # channel is declared a false acquisition (in-stream decode only)
+        self.probation_s = probation_s
+        self.code_lock_gate = code_lock_gate
+        # replay-capture oscillator offset: "auto" estimates it from the
+        # cold-start Doppler median when that exceeds 10 kHz, a float pins
+        # it, 0 disables (tpu_gnss/receiver.py:371-381)
+        self._if_offset = (0.0 if if_offset_hz == "auto"
+                           else float(if_offset_hz))
+        self._if_offset_locked = if_offset_hz != "auto"
         self._tables_cache = None
 
     # ------------------------------------------------------------------
+    def _resolve_engine(self) -> str:
+        """Concrete acquisition engine: "auto" runs the fused kernel
+        engine wherever the transform length factors for it (the CUDA
+        kernel on a card, its plain version on the CPU), else the FFT
+        grid engine (tpu_gnss/receiver.py:404-419 without the mesh)."""
+        if self.acq_engine != "auto":
+            return self.acq_engine
+        return "mxu" if self.searcher.mxu_supported() else "xla"
+
     def _cold_detections(self, head, bits: bool = False,
                          skip_prns=frozenset()) -> list:
         """Refined detections for channel seeding.
@@ -280,37 +375,51 @@ class Receiver:
         non-coherent accumulation (tpu_gnss/receiver.py:458-532, without
         the almanac-directed searcher).
         """
+        searcher = self.searcher
+        engine = self._resolve_engine()
         kw = dict(bits=head) if bits else dict(iq=head)
-        dets = self.searcher.detections_refined_fast(**kw,
-                                                     skip_prns=skip_prns)
-        k = min(WEAK_NONCOHERENT, len(head) // self.searcher.block_len)
-        if len(dets) + len(skip_prns) < WEAK_MIN_SVS and k > 1:
-            weak = self.searcher.detections_refined_fast(
-                **kw, n_noncoherent=k, skip_prns=skip_prns)
+
+        def run(n_nc):
+            if engine == "mxu":
+                return searcher.detections_refined_fast(
+                    **kw, n_noncoherent=n_nc, skip_prns=skip_prns)
+            pwr = searcher.power_grid(**kw, n_noncoherent=n_nc)
+            return [d for d in searcher.detections_refined(pwr, n_nc)
+                    if d["prn"] not in skip_prns]
+
+        dets = run(1)
+        k = min(self.weak_noncoherent, len(head) // searcher.block_len)
+        if len(dets) + len(skip_prns) < self.weak_min_svs and k > 1:
+            weak = run(k)
             if len(weak) > len(dets):
                 dets = weak
         return dets
 
     # ------------------------------------------------------------------
-    def process_iq(self, iq: np.ndarray,
+    def process_iq(self, iq: np.ndarray, max_channels: Optional[int] = None,
                    chunk_s: float = 2.0) -> "ReceiverResult":
         """Run the full chain over a host complex-baseband capture."""
         return self.process_source(ArraySource(iq, self.cfg.fs),
+                                   max_channels=max_channels,
                                    chunk_s=chunk_s)
 
     # ------------------------------------------------------------------
     def process_source(self, source, max_duration_s: Optional[float] = None,
+                       max_channels: Optional[int] = None,
                        chunk_s: float = 1.0,
                        on_solution=None) -> "ReceiverResult":
         """Streaming full chain over a :mod:`tpu_gnss_torch.io.stream`
         source (bounded memory: only per-epoch correlator outputs are
-        kept)."""
-        if on_solution is not None:
-            raise NotImplementedError("live in-stream solving "
-                                      "(on_solution) is not ported yet")
+        kept).
+
+        ``on_solution``: live-mode fix sink.  When given, NAV decode and
+        PVT run in-stream at the solve cadence (the reference's 4 s
+        SolveTask loop, c/solve.cpp:297-317) and each fix is delivered as
+        it is computed; fixes of the end-of-stream pass follow.
+        """
         cfg = self.cfg
         p = round(cfg.fs * 1e-3)
-        eps = EPOCHS_PER_STEP
+        eps = self.epochs_per_step
         if round(chunk_s * 1000) % eps:
             raise ValueError("chunk_s must cover whole tracking steps")
         chunk_len = max(1, round(chunk_s * 1000)) * p
@@ -322,17 +431,43 @@ class Receiver:
                       and chunk_len % 32 == 0)
         use_bits = (onebit_src and hasattr(source, "bit_blocks")
                     and not use_packed)
-        mode = "packed" if use_packed else "bits" if use_bits else "iq"
-        n_samples = (lambda b: 32 * len(b)) if use_packed else len
-        sample0 = [0]   # running upload sample index (prefetch thread)
+        # 8-bit I/Q sources: the capture's own interleaved bytes cross
+        # (or their int4/int2 requantization); the conversion runs on the
+        # device
+        use_rawiq = (not use_packed and not use_bits
+                     and hasattr(source, "raw_blocks")
+                     and getattr(source, "dtype", None) in ("int8", "uint8"))
+        mode = ("packed" if use_packed else "bits" if use_bits
+                else "rawiq" if use_rawiq else "iq")
+        n_samples = ((lambda b: 32 * len(b)) if use_packed
+                     else (lambda b: len(b) // 2) if use_rawiq else len)
+        # running upload sample index (prefetch thread).  A follow
+        # source's skip-ahead advances it by the skipped samples, so the
+        # 1-bit LO mix phase stays that of the true file sample index
+        # (tpu_gnss/receiver.py:621-643)
+        xfer_state = {"sample0": 0, "skipped_bytes": 0}
+        skip_reader = (getattr(source, "reader", None)
+                       if (use_packed or use_bits) else None)
+        if use_rawiq:
+            raw_link = {"int2": xfer.to_device_iq2,
+                        "int4": xfer.to_device_iq4}.get(
+                            self.transfer_dtype, xfer.to_device_iq8)
+            signed = source.dtype == "int8"
+            remove_dc = getattr(source, "remove_dc", True)
 
         def upload(blk):
             n_samp = n_samples(blk)
             n_ep = (n_samp // p // eps) * eps
             if n_ep == 0:
                 return (blk, None, 0, n_samp)
-            s0 = sample0[0]
-            sample0[0] = s0 + n_ep * p
+            if skip_reader is not None:
+                sk = skip_reader.skipped_bytes
+                if sk > xfer_state["skipped_bytes"]:
+                    xfer_state["sample0"] += \
+                        8 * (sk - xfer_state["skipped_bytes"])
+                    xfer_state["skipped_bytes"] = sk
+            s0 = xfer_state["sample0"]
+            xfer_state["sample0"] = s0 + n_ep * p
             with METRICS.stage("receiver.transfer"):
                 if use_packed and n_ep * p == n_samp:
                     seg = self._mix_chunk_packed(blk, s0)
@@ -343,25 +478,30 @@ class Receiver:
                     seg = self._mix_bits(bits, s0)
                 elif use_bits:
                     seg = self._mix_bits(blk[: n_ep * p], s0)
+                elif use_rawiq:
+                    seg = raw_link(blk[: 2 * n_ep * p], signed=signed,
+                                   remove_dc=remove_dc, device=self.device)
                 else:
-                    seg = torch.from_numpy(np.ascontiguousarray(
-                        blk[: n_ep * p], np.complex64)).to(self.device)
+                    seg = self._transfer(blk[: n_ep * p])
             return (blk, seg, n_ep, n_samp)
 
         prefetcher = Prefetcher(source, chunk_len, mode=mode,
                                 transform=upload)
         try:
             return self._stream_loop(
-                iter(prefetcher), n_samples, p, eps, chunk_len=chunk_len,
-                use_packed=use_packed, use_bits=use_bits,
-                max_duration_s=max_duration_s)
+                iter(prefetcher), source, n_samples, p, eps,
+                chunk_len=chunk_len, use_packed=use_packed,
+                use_bits=use_bits, use_rawiq=use_rawiq,
+                max_duration_s=max_duration_s, max_channels=max_channels,
+                on_solution=on_solution)
         finally:
             prefetcher.stop()
 
-    def _stream_loop(self, blocks, n_samples, p, eps, *, chunk_len,
-                     use_packed, use_bits, max_duration_s):
+    def _stream_loop(self, blocks, source, n_samples, p, eps, *, chunk_len,
+                     use_packed, use_bits, use_rawiq, max_duration_s,
+                     max_channels, on_solution):
         """Streaming body of :meth:`process_source` (the reference's
-        tpu_gnss/receiver.py:765-1134 without mesh, live and warm-start
+        tpu_gnss/receiver.py:765-1134 without mesh and warm-start
         modes)."""
         cfg = self.cfg
         with METRICS.stage("receiver.read"):
@@ -374,18 +514,22 @@ class Receiver:
                 raise ValueError("chunk_s too small for the acquisition block")
             return ReceiverResult(detections=[], channels=[], solutions=[])
 
-        n_chan = cfg.num_chans
+        n_chan = max_channels or cfg.num_chans
         state = tc.init_state(n_chan, self.device)
         slot_prns = [None] * n_chan   # channel slot -> PRN (None = free)
         live: dict = {}      # channel slot -> active ChannelRecord
         recs: list = []      # every record ever started (incl. lost)
-        acq_head_len = WEAK_NONCOHERENT * self.searcher.block_len
+        acq_head_len = self.weak_noncoherent * self.searcher.block_len
 
         def head_of(blk):
             """Acquisition-ready head samples of a host chunk."""
             if use_packed:     # acquisition sees {0,1} samples
                 words = blk[: (acq_head_len + 31) // 32]
                 return loaders.unpack_1bit(words.tobytes())[:acq_head_len]
+            if use_rawiq:      # convert just the head on the host
+                return loaders.iq8_to_complex(
+                    blk[: 2 * acq_head_len], signed=source.dtype == "int8",
+                    remove_dc=getattr(source, "remove_dc", True))
             return blk[:acq_head_len]
 
         def start_detections(dets, epoch_searched, epoch_now):
@@ -394,6 +538,9 @@ class Receiver:
             code-creep correction, c/channel.cpp:156-163)."""
             nonlocal state
             if not self._if_offset_locked and dets:
+                # one-shot oscillator-offset estimate: sky Doppler stays
+                # within ~±5 kHz, so a large common part is the replay
+                # TX/RX offset
                 med = float(np.median([d["doppler_hz"] for d in dets]))
                 if abs(med) > 10e3:
                     self._if_offset = med
@@ -435,20 +582,28 @@ class Receiver:
 
         with METRICS.stage("receiver.acquire"):
             first_dets = try_acquire(first, 0)
-        reacq_base = int(REACQ_INTERVAL_S * 1000)
+        reacq_base = int(self.reacq_interval_s * 1000)
         reacq_cooldown = reacq_base
         next_reacq = reacq_base
         n_dispatched = 0     # epochs sent to the tracker
+        n_drained = 0        # epochs whose outputs reached the records
         loss_events = 0      # signal-loss count (re-arm bookkeeping)
+        solutions: list = []
+        step_ms = int(self.solve_interval_s * 1000)
+        next_solve = step_ms
 
         def drain(pending):
-            """Fetch an earlier chunk's outputs; bookkeeping + watchdog."""
+            """Fetch an earlier chunk's outputs; bookkeeping, watchdog and
+            history bounding."""
             nonlocal state, reacq_cooldown, next_reacq, loss_events
-            out_fut, snapshot = pending
+            nonlocal n_drained
+            out_fut, snapshot, chunk_ep = pending
             with METRICS.stage("receiver.fetch"):
                 arr, elp = out_fut.result()      # [5, n_ep, n_chan]
             with METRICS.stage("receiver.drain"):
                 ip, qp, cf, caf, cp = arr
+                # skip channels an earlier drain declared lost, and copy
+                # the column slices (views would pin the chunk buffer)
                 for r in snapshot:
                     if r.lost:
                         continue
@@ -477,6 +632,40 @@ class Receiver:
                     loss_events += 1
                     reacq_cooldown = reacq_base
                     next_reacq = min(next_reacq, n_dispatched + reacq_base)
+                if self.max_history_s is not None:
+                    # the window holds whole subframes with margin, so NAV
+                    # decode inside it stays possible
+                    keep = max(int(self.max_history_s * 1000), 12000)
+                    for r in recs:
+                        if r.lost and (n_dispatched
+                                       - (r.start_epoch + r.n_epochs)
+                                       > keep):
+                            # beyond any future snapshot: drop the whole
+                            # history (anchors and ephemeris stay)
+                            r.trim_to(0)
+                        elif r.n_epochs - r.trim_epochs > keep:
+                            # decode before the window slides past
+                            # undecoded bits (anchors survive archived)
+                            with METRICS.stage("receiver.nav"):
+                                self._decode_nav(r)
+                            r.trim_to(keep)
+                n_drained += chunk_ep
+
+        def instream_solve():
+            """Live-mode NAV decode and PVT at the solve cadence."""
+            nonlocal next_solve
+            while next_solve <= n_drained - 2:
+                with METRICS.stage("receiver.nav"):
+                    for r in recs:
+                        if not r.lost:
+                            self._decode_nav(r)
+                with METRICS.stage("receiver.solve"):
+                    sol = self._solve_at(recs, next_solve)
+                if sol is not None:
+                    sol.snap_epoch = next_solve
+                    solutions.append(sol)
+                    on_solution(sol)
+                next_solve += step_ms
 
         # steady-state re-acquisition runs in a worker thread; results
         # are applied at the next chunk boundary with code-creep
@@ -507,7 +696,9 @@ class Receiver:
         def fetch(a, b):
             return a.cpu().numpy(), b.cpu().numpy()
 
-        depth = 2            # chunks in flight before the host drains
+        # chunks in flight before the host drains: live mode keeps one so
+        # fixes and the watchdog lag the stream by at most one chunk
+        depth = 1 if on_solution is not None else 2
         pendings: deque = deque()
         item = first_item
         try:
@@ -522,6 +713,8 @@ class Receiver:
                     started = start_detections(reacq_job["dets"],
                                                reacq_job["epoch"],
                                                n_dispatched)
+                    # fruitless searches back off exponentially; a hit or
+                    # a fresh loss resets the cadence
                     reacq_cooldown = (reacq_base if started
                                       else min(2 * reacq_cooldown,
                                                8 * reacq_base))
@@ -535,19 +728,22 @@ class Receiver:
                         and len(live) < n_chan
                         and n_samp >= self.searcher.block_len):
                     reacq_job = launch_reacq(blk, n_dispatched)
-                code_ffts = self._tables_for(tuple(slot_prns), n_chan)
+                tables, code_ffts = self._tables_for(tuple(slot_prns), n_chan)
                 with METRICS.stage("receiver.track"):
                     state, out = tc.track_epochs(
-                        seg, state, fs=cfg.fs,
+                        seg, state, tables, fs=cfg.fs,
                         pll_gains=self.pll_gains, dll_gains=self.dll_gains,
-                        code_ffts=code_ffts, epochs_per_step=eps,
+                        epochs_per_step=eps, code_ffts=code_ffts,
+                        agc_thresholds=self.agc_thresholds,
                         aid_offset_hz=float(self._if_offset))
                     out_dev, elp_dev = _pack_out(out)
                 pendings.append((fetch_pool.submit(fetch, out_dev, elp_dev),
-                                 list(live.values())))
+                                 list(live.values()), n_ep))
                 n_dispatched += n_ep
                 while len(pendings) > depth:
                     drain(pendings.popleft())
+                    if on_solution is not None:
+                        instream_solve()
                 if (max_duration_s is not None
                         and n_dispatched * 1e-3 >= max_duration_s):
                     break
@@ -557,6 +753,8 @@ class Receiver:
                     item = next(blocks, None)
             while pendings:
                 drain(pendings.popleft())
+                if on_solution is not None:
+                    instream_solve()
         finally:
             fetch_pool.shutdown(wait=True, cancel_futures=True)
             if reacq_job is not None:
@@ -565,21 +763,43 @@ class Receiver:
         with METRICS.stage("receiver.nav"):
             for r in recs:
                 self._decode_nav(r)
-        step_ms = int(SOLVE_INTERVAL_S * 1000)
-        snap_epochs = list(range(step_ms, n_dispatched, step_ms))
-        if n_dispatched > 2 and n_dispatched - 2 not in snap_epochs:
+        done = {s.snap_epoch for s in solutions}
+        snap_epochs = [e for e in range(step_ms, n_dispatched, step_ms)
+                       if e not in done]
+        if (n_dispatched > 2 and n_dispatched - 2 not in done
+                and n_dispatched - 2 not in snap_epochs):
             snap_epochs.append(n_dispatched - 2)
-        solutions = []
         with METRICS.stage("receiver.solve"):
             for e_snap in snap_epochs:
                 sol = self._solve_at(recs, e_snap)
                 if sol is not None:
                     sol.snap_epoch = e_snap
                     solutions.append(sol)
+                    if on_solution is not None:   # end-of-stream stragglers
+                        on_solution(sol)
+        solutions.sort(key=lambda s: s.snap_epoch)
         return ReceiverResult(detections=first_dets, channels=recs,
                               solutions=solutions)
 
     # ------------------------------------------------------------------
+    def _transfer(self, blk: np.ndarray) -> torch.Tensor:
+        """One complex chunk host -> device over the ``transfer_dtype``
+        link (tpu_gnss/receiver.py:1137-1171).  A failed upload raises:
+        there is no fallback to another link."""
+        blk = np.ascontiguousarray(blk)
+        if self.transfer_dtype == "int2":
+            return xfer.to_device_complex_i2(blk, self.device)
+        if self.transfer_dtype == "float32":
+            return xfer.to_device_complex(blk, self.device)
+        rms = float(np.sqrt(np.mean(np.abs(blk[:65536]) ** 2)))
+        if self.transfer_dtype == "int4":
+            scale = 7.0 / (3.0 * rms) if rms > 1e-12 else 1.0
+            return xfer.to_device_complex_i4(blk, scale, self.device)
+        # per-chunk 6-sigma scale: follows level drift and never pins a
+        # degenerate scale from a quiet capture start
+        scale = 127.0 / (6.0 * rms) if rms > 1e-12 else 1.0
+        return xfer.to_device_complex_i8(blk, scale, self.device)
+
     def _mix_chunk_packed(self, words: np.ndarray, sample0: int):
         """Device unpack + mix of a packed uint32 word chunk.  The LO
         phase of the chunk's first sample is reduced on the host in
@@ -598,48 +818,82 @@ class Receiver:
         return mix_baseband(dev_bits, self.cfg.lo_rate, phase0_quarters=p0)
 
     # ------------------------------------------------------------------
-    def _tables_for(self, slot_key: tuple, n_chan: int) -> torch.Tensor:
-        """Correlator spectra ``[n_chan, NF]`` for the slot map, uploaded
-        only when the channel->PRN assignment changes."""
+    def _tables_for(self, slot_key: tuple, n_chan: int):
+        """``(code_tables, code_ffts)`` on the device for the slot map:
+        the ``[n_chan, NF]`` correlator spectra with ``fft_correlator``,
+        else the ``[n_chan, 1023]`` code tables of the gather correlator
+        (the other is None).  Uploaded only when the channel->PRN
+        assignment changes."""
         cached = self._tables_cache
         if cached is not None and cached[0] == slot_key:
             return cached[1]
         prns = [prn if prn is not None else 1 for prn in slot_key]
-        spec = torch.from_numpy(
-            tc.code_spectra_np(prns, n_chan, self.cfg.fs)).to(self.device)
-        self._tables_cache = (slot_key, spec)
-        return spec
+        if self.fft_correlator:
+            pair = (None, torch.from_numpy(
+                tc.code_spectra_np(prns, n_chan, self.cfg.fs)).to(self.device))
+        else:
+            pair = (torch.from_numpy(
+                tc.channel_code_tables(prns, n_chan)).to(self.device), None)
+        self._tables_cache = (slot_key, pair)
+        return pair
 
     # ------------------------------------------------------------------
     # host half, copied from tpu_gnss/receiver.py:1225-1537
     def _watchdog(self, recs) -> None:
-        """Free channels whose prompt power collapsed (SignalLost analog).
-
-        The reference's probation check (no parity-valid subframe after
-        30 s of decoded stream) fires only where NAV decode runs
-        in-stream; this receiver decodes once at the end, so it has none.
-        """
-        win = int(LOS_TIMEOUT_S * 1000)
+        """Free channels whose prompt power collapsed (SignalLost analog)
+        or that never produced a parity-valid subframe (probation,
+        reference: c/channel.cpp:39,343,363 — a false acquisition tracks
+        noise at stable power, so the power watchdog alone would let it
+        occupy a slot and block its PRN forever)."""
+        win = int(self.los_timeout_s * 1000)
+        probation = int(self.probation_s * 1000)
         for r in recs:
             if r.lost or r.n_epochs < 2 * win:
                 continue
+            if (r._decoded_upto >= probation
+                    and not r.subframes and not r.archived_subframes):
+                r.lost = True
+                continue
             if r._ref_pwr is None:
                 ref = r.abs_slice("ip", win // 2, win)
+                if len(ref) == 0:    # early history already trimmed
+                    ref = r.tail("ip", win)
                 r._ref_pwr = float(np.mean(np.square(ref)))
             cur = r.tail("ip", win)
             cur_pwr = float(np.mean(np.square(cur)))
-            if r._ref_pwr > 0 and cur_pwr < LOS_POWER_RATIO * r._ref_pwr:
+            if r._ref_pwr > 0 and cur_pwr < self.los_power_ratio * r._ref_pwr:
                 r.lost = True
 
     def _decode_nav(self, r: ChannelRecord) -> None:
-        """Decode a channel's NAV stream from its whole prompt history,
-        once, after the stream ends (the reference's live-mode
-        incremental window and anchor archive are not ported)."""
-        from .track.quality import cn0_nwpr
+        """(Re-)decode a channel's NAV stream from its prompt history.
+
+        Idempotent: live mode re-runs it as history grows, so the
+        subframe list is rebuilt from scratch each call.
+        """
         ip = r.ip_hist
-        skip_abs = 600               # skip the pull-in transient
+        # Incremental decode window: the first pass covers everything
+        # retained; later passes re-cover a 12 s overlap (two subframes)
+        # plus the new epochs, so repeated live-mode decodes cost
+        # O(new), not O(total history).  Anchors older than the window
+        # survive: a_edge and tow are absolute — archive them first.
+        if r._decoded_upto == 0:
+            start = r.trim_epochs
+        else:
+            start = max(r.trim_epochs, r._decoded_upto - 12000)
+        skip_abs = max(start, 600)   # skip the pull-in transient
         if r.n_epochs - skip_abs < 40 * CODES_PER_BIT:
             return
+        seen = {a["a_edge"] for a in r.archived_subframes}
+        for s_old in r.subframes:
+            if s_old.get("a_edge") is not None and s_old["a_edge"] not in seen:
+                r.archived_subframes.append(s_old)
+                seen.add(s_old["a_edge"])
+        if len(r.archived_subframes) > 64:   # bound: the transmit-time
+            # vote needs a handful of anchors, not a day's worth
+            r.archived_subframes = r.archived_subframes[-64:]
+        r.subframes = []
+        r.last_subframe_bit = None
+        r.last_tow = None
         qp = r.qp_hist
         r.cn0_dbhz = cn0_nwpr(ip[-2000:], qp[-2000:])
         # Bit sync on the CODE-PERIOD grid: the NAV bit grid is tied to
@@ -676,13 +930,11 @@ class Receiver:
                                     bit_epoch=bit_epoch, a_edge=a_edge))
             r.last_subframe_bit = bit_epoch
             r.last_tow = r.eph.tow
-        # Hot-start anchors: once the ephemeris is valid (warm start or
-        # already decoded), a preamble + parity-valid TLM/HOW pair at
-        # the stream tail yields a TOW anchor ~4.8 s before the full
-        # subframe completes — the HOW-anchoring trick real receivers
-        # use to cut hot time-to-first-fix.  Same (tow, a_edge) anchor
-        # convention as full subframes; the solver's cluster vote and
-        # RAIM still gate it.
+        # Hot-start anchors: once the ephemeris is valid, a preamble +
+        # parity-valid TLM/HOW pair at the stream tail yields a TOW
+        # anchor ~4.8 s before the full subframe completes.  Same
+        # (tow, a_edge) anchor convention as full subframes; the solver's
+        # cluster vote and RAIM still gate it.
         r.partial_anchors = []
         if r.eph.valid():
             for pa in nav_bits.partial_anchors(bits):
@@ -693,10 +945,10 @@ class Receiver:
                 r.partial_anchors.append(dict(
                     sid="how", tow=pa["tow"],
                     bit_epoch=bit_epoch, a_edge=a_edge))
+        r._decoded_upto = r.n_epochs
         if r.eph.valid():
             # a validated ephemeris is strictly better almanac data than
-            # the broadcast page — fold it into the store for the next
-            # run's directed search
+            # the broadcast page
             self.almanac[r.prn] = nav_almanac.Almanac.from_ephemeris(
                 r.prn, r.eph)
 
@@ -723,12 +975,13 @@ class Receiver:
         ~100 s real receivers run before code-carrier iono divergence
         (<=~10 cm at typical rates, absent in synthetic scenes)
         matters.  The window skips the pull-in ``settle`` and never
-        reaches before channel start; a channel that loses lock stops
-        accumulating epochs, so post-loss garbage cannot enter.
+        reaches before channel start (or the trimmed history's head); a
+        channel that loses lock stops accumulating epochs, so post-loss
+        garbage cannot enter.
         """
-        w = min(e_local - settle, max_w)
+        w = min(e_local - settle, max_w, e_local - r.trim_epochs)
         if w < 100:
-            return float(r.hist("chips")[e_local])
+            return float(r.abs_at("chips", e_local))
         t_epoch = round(self.cfg.fs * 1e-3) / self.cfg.fs
         caf = np.asarray(r.abs_slice("caf", e_local - w, e_local),
                          np.float64)
@@ -742,7 +995,7 @@ class Receiver:
         """Hard + soft fault-gated position solve.
 
         Hard layer: :func:`pvt.solve_position_raim` at the gross gate
-        (``RAIM_RESIDUAL_M``, catches code-period slips ~300 km).  Soft
+        (``raim_residual_m``, catches code-period slips ~300 km).  Soft
         layer, calibrated to the receiver's OWN noise: once a residual
         baseline exists (last 32 accepted fixes), a fix whose post-fit
         RMS exceeds 5x the recent median (>=1 m) re-solves with
@@ -754,7 +1007,7 @@ class Receiver:
         """
         sol, excl = pvt.solve_position_raim(
             np.asarray(t_tx), ephs, np.asarray(weights), apply_iono=True,
-            residual_gate_m=RAIM_RESIDUAL_M)
+            residual_gate_m=self.raim_residual_m)
         if sol is None or not sol.converged:
             return None, None
         r_rms = sol.residual_rms_m
@@ -787,27 +1040,29 @@ class Receiver:
         first-order proportional to linear C/N0) instead of raw prompt
         power.
         """
-        from .track.quality import cn0_nwpr, pll_lock_metric
         t_tx, ephs, weights, dops, used = [], [], [], [], []
         for r in recs:
             e_local = e_snap - r.start_epoch  # records may start mid-run
             if (not r.eph.valid()
                     or e_local >= r.n_epochs
-                    or e_local <= 1):
+                    or e_local <= r.trim_epochs + 1):
                 continue
-            ip_t = r.abs_slice("ip", e_local - 2000, e_local)
-            qp_t = r.abs_slice("qp", e_local - 2000, e_local)
-            lock = pll_lock_metric(ip_t, qp_t, window=200)
-            cn0 = cn0_nwpr(ip_t, qp_t)
-            if lock < LOCK_GATE:
-                continue
-            if cn0 == cn0 and cn0 < CN0_GATE_DBHZ:
-                continue
-            cl = r.code_lock_at(e_local)
-            if cl is not None and cl < CODE_LOCK_GATE:
-                continue
+            if self.quality_gate:
+                ip_t = r.abs_slice("ip", e_local - 2000, e_local)
+                qp_t = r.abs_slice("qp", e_local - 2000, e_local)
+                lock = pll_lock_metric(ip_t, qp_t, window=200)
+                cn0 = cn0_nwpr(ip_t, qp_t)
+                if lock < self.lock_gate:
+                    continue
+                if cn0 == cn0 and cn0 < self.cn0_gate_dbhz:
+                    continue
+                cl = r.code_lock_at(e_local)
+                if cl is not None and cl < self.code_lock_gate:
+                    continue
             subs = {s["a_edge"]: s for s in r.partial_anchors
                     if s.get("a_edge") is not None}
+            subs.update({s["a_edge"]: s for s in r.archived_subframes
+                         if s.get("a_edge") is not None})
             subs.update({s["a_edge"]: s for s in r.subframes
                          if s.get("a_edge") is not None})
             anchors = [s for s in subs.values()
@@ -818,10 +1073,14 @@ class Receiver:
             t = _transmit_time(anchors, a_snap)
             t_tx.append(t)
             ephs.append(r.eph)
-            # C/N0-derived weight; None (short history) filled with the
-            # median below so scales never mix
-            weights.append(float(10.0 ** (cn0 / 10.0))
-                           if cn0 == cn0 else None)
+            if self.quality_gate:
+                # C/N0-derived weight; None (short history) filled with
+                # the median below so scales never mix
+                weights.append(float(10.0 ** (cn0 / 10.0))
+                               if cn0 == cn0 else None)
+            else:   # gate off: the reference's prompt-power weighting
+                ip = r.abs_slice("ip", e_local - 8, e_local)
+                weights.append(float(np.mean(np.square(ip))))
             # carrier Doppler at the snapshot, smoothed over the last
             # 100 ms to average PLL jitter (the loop BW is ~18 Hz)
             cfh = r.abs_slice("caf", e_local - 100, e_local)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..constants import OMEGA_E, SPEED_OF_LIGHT
+from ..constants import L1_HZ, OMEGA_E, SPEED_OF_LIGHT
 from ..io import loaders
 from ..nav.ephemeris import Ephemeris, encode_subframes
 from ..pvt import solve as ps
@@ -22,6 +22,7 @@ from . import synth
 FS = 2.048e6
 TRUTH_LLA = (52.95, -1.15, 48.0)
 T_OE = 302400.0
+T_RX0 = T_OE + 88.6          # receiver time of a scene's first sample
 
 
 def make_constellation(n: int = 6, t_oe: float = T_OE) -> list:
@@ -62,6 +63,16 @@ def sv_time_knots(eph, rx_ecef, t_rx_knots) -> np.ndarray:
     return np.array(out)
 
 
+def sky_dopplers_hz(ephs, rx_ecef, t: float = 0.0) -> np.ndarray:
+    """True carrier Doppler (Hz) of each SV of :func:`build_scene` at scene
+    time ``t``: ``L1 * (dt_sv/dt_rx - 1)``, the rate of the carrier phase
+    that :func:`synth.synth_from_sv_time` gives it (a central difference
+    over +-0.5 s, well inside float64 at seconds of week)."""
+    return np.array([L1_HZ * (np.diff(sv_time_knots(
+        eph, rx_ecef, T_RX0 + t + np.array([-0.5, 0.5])))[0] - 1.0)
+        for eph in ephs])
+
+
 def build_scene(duration: float = 20.0, n_sv: int = 6, noise: float = 0.7,
                 seed: int = 42, fs: float = FS):
     """Consistent multi-SV complex-baseband scene: ``(iq, ephs, rx_ecef)``.
@@ -77,7 +88,7 @@ def build_scene(duration: float = 20.0, n_sv: int = 6, noise: float = 0.7,
     n = int(duration * fs)
     t_knots = np.linspace(0, duration, max(41, int(3 * duration)))
     fit_deg = max(3, int(duration // 12))
-    t_rx0 = T_OE + 88.6
+    t_rx0 = T_RX0
     n_sf = int(np.ceil(duration / 6.0)) + 2
     sids = tuple(([4, 1, 2, 3] * ((n_sf + 3) // 4))[:n_sf])
     iq = np.zeros(n, dtype=np.complex64)

@@ -2,10 +2,11 @@
 
 Counterpart of :mod:`tpu_gnss.track.channel`.  State is a NamedTuple of
 ``[n_chan]`` tensors; each step correlates ``epochs_per_step`` 1 ms
-epochs of the shared front-end stream for every channel through
+epochs of the shared front-end stream for every channel, through
 :func:`tpu_gnss_torch.ops.mxu_track.track_corr` (the CUDA kernel on the
-card, its plain version on the CPU), then runs the discriminators and
-loop filters on the device.  The reference's ``lax.scan`` over steps is
+card, its plain version on the CPU) or the reference-style gather
+correlator, then runs the discriminators and loop filters on the
+device.  The reference's ``lax.scan`` over steps is
 a Python loop here: nothing in it waits for the device, so the host
 only enqueues work and the outputs stay on the device until the caller
 fetches them.
@@ -54,7 +55,7 @@ class ChannelState(NamedTuple):
     pwr_avg: torch.Tensor        # running prompt power average
     ip_prev: torch.Tensor        # previous prompt I (FLL discriminator)
     qp_prev: torch.Tensor        # previous prompt Q
-    agc_on: torch.Tensor         # bool: reference AGC flag, carried as is
+    agc_on: torch.Tensor         # bool: strong-signal gain reduction active
 
 
 class EpochOut(NamedTuple):
@@ -189,33 +190,50 @@ def code_spectra_np(prns, n_chan: int, fs: float) -> np.ndarray:
 # _frac_ramp, tpu_gnss/track/channel.py:551-666) live beside the kernel
 # they feed, as mxu_track.track_tables, dense_taps and frac_ramp.
 
-
-# Loop settings: the reference track_epochs defaults, which no caller of
-# the port changes (tpu_gnss/track/channel.py:193-205).  The reference's
-# strong-signal AGC (agc_thresholds) is not ported: agc_on is carried
-# through unchanged so states cross between the packages intact.
-FLL_BN_HZ = 3.0
-CORR_SPACING = 0.5       # chips between prompt and early/late
+# carrier-wipe phasor split of the gather path: sample n = K*b + a
+# (tpu_gnss/track/channel.py:300-307)
+_WIPE_K = 256
 
 
-def track_epochs(samples: torch.Tensor, state: ChannelState, *, fs: float,
+def track_epochs(samples: torch.Tensor, state: ChannelState,
+                 code_tables: Optional[torch.Tensor] = None, *, fs: float,
                  pll_gains: tuple[float, float],
                  dll_gains: tuple[float, float],
-                 code_ffts: torch.Tensor,
+                 fll_bn_hz: float = 3.0,
+                 corr_spacing: float = 0.5,
+                 carrier_aiding: bool = True,
                  epochs_per_step: int = 1,
+                 code_ffts: Optional[torch.Tensor] = None,
+                 agc_thresholds: Optional[tuple[float, float]] = None,
                  aid_offset_hz: float = 0.0
                  ) -> tuple[ChannelState, EpochOut]:
     """Run the channel bank over a span of complex baseband samples.
 
-    Same loop semantics as :func:`tpu_gnss.track.channel.track_epochs`
-    with its default loop settings and carrier aiding on.  ``code_ffts``
-    (``[n_chan, NF]`` complex64 from :func:`code_spectra_np`) feeds the
-    FFT-dot taps of :func:`tpu_gnss_torch.ops.mxu_track.track_corr`; the
-    reference's per-sample gather correlator is not ported.
+    Same loop semantics and options as
+    :func:`tpu_gnss.track.channel.track_epochs` (tpu_gnss/track/
+    channel.py:193-547).  The correlator is one of two:
+
+    * ``code_ffts`` (``[n_chan, NF]`` complex64 from
+      :func:`code_spectra_np`): the FFT-dot taps of
+      :func:`tpu_gnss_torch.ops.mxu_track.track_corr`, the CUDA kernel on
+      a card, at ``corr_spacing`` chips;
+    * else ``code_tables`` (``[n_chan, 1023]`` bipolar float32 from
+      :func:`channel_code_tables`): the reference-style correlator that
+      gathers the resampled code per sample, plain torch on the device.
+
+    ``fll_bn_hz`` is the FLL assist bandwidth, ``carrier_aiding`` derives
+    the code rate from the carrier loop (minus ``aid_offset_hz``, a common
+    oscillator offset), and ``agc_thresholds = (lo, hi)`` halves the
+    Costas gain while the running prompt power ``pwr_avg`` sits above
+    ``hi`` until it falls below ``lo`` (the reference's strong-signal AGC,
+    c/channel.cpp:265-288; ``None`` leaves ``agc_on`` as it is).
 
     Returns (final state, per-epoch outputs ``[n_steps*e_sub, n_chan]``),
     all on the samples' device, without waiting for the device.
     """
+    if code_ffts is None and code_tables is None:
+        raise ValueError("track_epochs needs code_ffts (FFT-dot "
+                         "correlator) or code_tables (gather correlator)")
     dev = samples.device
     p = int(round(fs * 1e-3))
     e_sub = epochs_per_step
@@ -231,39 +249,83 @@ def track_epochs(samples: torch.Tensor, state: ChannelState, *, fs: float,
     # 0 at integer-kHz sample rates); see the module docstring
     nom_step_mod = float((CHIP_RATE_HZ * step_len / fs) % CODE_LEN_CHIPS)
     nom_epoch_mod = float((CHIP_RATE_HZ * p / fs) % CODE_LEN_CHIPS)
-
-    nf = code_ffts.shape[-1]
-    n1, _ = split_nf(nf)
-    u_rows = four_step_np(nf, p)["u_rows"]
-    cw_r, cw_i = mxu_track.spec_planes(code_ffts, nf)
     scale = p / CODE_LEN_CHIPS
-    dsamp = CORR_SPACING * scale
-    blocks = samples[: n_steps * step_len].reshape(n_steps, e_sub, p)
-    blocks = torch.nn.functional.pad(
-        torch.view_as_real(blocks), (0, 0, 0, u_rows * n1 - p))
-    blk_r = blocks[..., 0].reshape(n_steps, e_sub, u_rows, n1).contiguous()
-    blk_i = blocks[..., 1].reshape(n_steps, e_sub, u_rows, n1).contiguous()
+
+    if code_ffts is not None:
+        nf = code_ffts.shape[-1]
+        n1, _ = split_nf(nf)
+        u_rows = four_step_np(nf, p)["u_rows"]
+        cw_r, cw_i = mxu_track.spec_planes(code_ffts, nf)
+        dsamp = corr_spacing * scale
+        blocks = samples[: n_steps * step_len].reshape(n_steps, e_sub, p)
+        blocks = torch.nn.functional.pad(
+            torch.view_as_real(blocks), (0, 0, 0, u_rows * n1 - p))
+        blk_r = blocks[..., 0].reshape(n_steps, e_sub, u_rows, n1
+                                       ).contiguous()
+        blk_i = blocks[..., 1].reshape(n_steps, e_sub, u_rows, n1
+                                       ).contiguous()
+
+        def correlate(s, st):
+            delta = st.carrier_freq / fs
+            phase0 = (st.carrier_phase[:, None]
+                      + delta[:, None] * e_steps) % 1.0
+            chips0 = (st.code_phase[:, None] + (st.code_dev / fs)[:, None]
+                      * e_steps + nom_epoch_mod * e_idx)
+            s0p = (chips0 % CODE_LEN_CHIPS) * scale
+            s0e = ((chips0 + corr_spacing) % CODE_LEN_CHIPS) * scale
+            s0l = ((chips0 - corr_spacing) % CODE_LEN_CHIPS) * scale
+            par = torch.stack([phase0, delta[:, None].expand_as(phase0), s0p,
+                               (s0e < s0p).to(torch.float32),
+                               (s0l > s0p).to(torch.float32)], dim=-1)
+            par = par.transpose(0, 1).contiguous()    # [e_sub, n_chan, 5]
+            out6 = mxu_track.track_corr(blk_r[s], blk_i[s], par, cw_r, cw_i,
+                                        period=p, nf=nf, dsamp=dsamp)
+            out6 = out6.transpose(0, 1)               # [n_chan, e_sub, 6]
+            return (out6[..., 0], out6[..., 1],
+                    torch.hypot(out6[..., 2], out6[..., 3]),
+                    torch.hypot(out6[..., 4], out6[..., 5]))
+    else:
+        blocks = samples[: n_steps * step_len].reshape(n_steps, step_len)
+        # per-sample nominal chip index, reduced mod 1023 in float64
+        # before the float32 cast
+        n_np = (np.arange(e_sub, dtype=np.float64)[:, None] * p
+                + np.arange(p, dtype=np.float64)[None, :])
+        nom_n = torch.from_numpy(((CHIP_RATE_HZ / fs) * n_np)
+                                 % CODE_LEN_CHIPS).to(torch.float32).to(dev)
+        n_f = torch.from_numpy(n_np.astype(np.float32)).to(dev)
+        wipe_nb = -(-step_len // _WIPE_K)
+        wipe_a = torch.arange(_WIPE_K, dtype=torch.float32, device=dev)
+        wipe_b = torch.arange(wipe_nb, dtype=torch.float32,
+                              device=dev) * _WIPE_K
+        ch_idx = torch.arange(code_tables.shape[0], device=dev)[:, None, None]
+
+        def correlate(s, st):
+            delta = (st.carrier_freq / fs)[:, None]   # cycles/sample
+            pha = (-two_pi) * ((delta * wipe_a[None, :]) % 1.0)
+            phb = (-two_pi) * ((st.carrier_phase[:, None]
+                                + delta * wipe_b[None, :]) % 1.0)
+            ea = torch.complex(torch.cos(pha), torch.sin(pha))
+            eb = torch.complex(torch.cos(phb), torch.sin(phb))
+            lo = (eb[:, :, None] * ea[:, None, :]).reshape(
+                -1, wipe_nb * _WIPE_K)[:, :step_len]
+            wiped = (blocks[s][None, :] * lo).reshape(-1, e_sub, p)
+            chips_t = (st.code_phase[:, None, None]
+                       + (st.code_dev / fs)[:, None, None] * n_f[None]
+                       + nom_n[None])
+
+            def corr(offset):
+                idx = (torch.floor(chips_t + offset).to(torch.int64)
+                       % CODE_LEN_CHIPS)
+                return (wiped * code_tables[ch_idx, idx]).sum(-1)
+
+            cp = corr(0.0)
+            return (cp.real, cp.imag, corr(corr_spacing).abs(),
+                    corr(-corr_spacing).abs())
 
     st = state
     outs = []
     for s in range(n_steps):
-        delta = st.carrier_freq / fs
-        phase0 = (st.carrier_phase[:, None] + delta[:, None] * e_steps) % 1.0
-        chips0 = (st.code_phase[:, None] + (st.code_dev / fs)[:, None]
-                  * e_steps + nom_epoch_mod * e_idx)
-        s0p = (chips0 % CODE_LEN_CHIPS) * scale
-        s0e = ((chips0 + CORR_SPACING) % CODE_LEN_CHIPS) * scale
-        s0l = ((chips0 - CORR_SPACING) % CODE_LEN_CHIPS) * scale
-        par = torch.stack([phase0, delta[:, None].expand_as(phase0), s0p,
-                           (s0e < s0p).to(torch.float32),
-                           (s0l > s0p).to(torch.float32)], dim=-1)
-        par = par.transpose(0, 1).contiguous()        # [e_sub, n_chan, 5]
-        out6 = mxu_track.track_corr(blk_r[s], blk_i[s], par, cw_r, cw_i,
-                                    period=p, nf=nf, dsamp=dsamp)
-        out6 = out6.transpose(0, 1)                   # [n_chan, e_sub, 6]
-        ip_all, qp_all = out6[..., 0], out6[..., 1]
-        e_mag_all = torch.hypot(out6[..., 2], out6[..., 3])
-        l_mag_all = torch.hypot(out6[..., 4], out6[..., 5])
+        ip_all, qp_all, e_mag_all, l_mag_all = correlate(s, st)
         ip, qp = ip_all[:, -1], qp_all[:, -1]
         e_mag, l_mag = e_mag_all.mean(1), l_mag_all.mean(1)
 
@@ -280,10 +342,14 @@ def track_epochs(samples: torch.Tensor, state: ChannelState, *, fs: float,
         valid = (prev_pwr > 0).to(torch.float32)
         fll_err = (fll_pairs * valid).sum(1) / valid.sum(1).clamp(min=1.0)
         denom = (e_mag + l_mag).clamp(min=1e-9)
-        dll_err = CORR_SPACING * (e_mag - l_mag) / denom
+        dll_err = corr_spacing * (e_mag - l_mag) / denom
 
         # --- loop filters: freq = seed + k1*e + acc ------------------------
-        fll_k = 4.0 * FLL_BN_HZ * t_epoch
+        # strong-signal AGC: halved Costas gain while agc_on (the decision
+        # is one step delayed, as the reference's 4 Hz CheckPower poll)
+        if agc_thresholds is not None:
+            pll_err = pll_err * torch.where(st.agc_on, 0.5, 1.0)
+        fll_k = 4.0 * fll_bn_hz * t_epoch
         act = st.active
         pll_acc = st.pll_acc + torch.where(
             act, pll_k2 * pll_err + fll_k * two_pi * fll_err, 0.0)
@@ -291,7 +357,8 @@ def track_epochs(samples: torch.Tensor, state: ChannelState, *, fs: float,
             act, st.carrier_seed + (pll_k1 * pll_err + pll_acc) / two_pi,
             st.carrier_freq)
         dll_acc = st.dll_acc + torch.where(act, dll_k2 * dll_err, 0.0)
-        aid = (carrier_freq - aid_offset_hz) / L1_HZ * CHIP_RATE_HZ
+        aid = ((carrier_freq - aid_offset_hz) / L1_HZ * CHIP_RATE_HZ
+               if carrier_aiding else torch.zeros_like(carrier_freq))
         code_dev = torch.where(act, aid + dll_k1 * dll_err + dll_acc,
                                st.code_dev)
 
@@ -305,6 +372,13 @@ def track_epochs(samples: torch.Tensor, state: ChannelState, *, fs: float,
         pwr = (ip_all * ip_all + qp_all * qp_all).mean(1)
         pwr_avg = torch.where(act, 0.875 * st.pwr_avg + 0.125 * pwr,
                               st.pwr_avg)
+        agc_on = st.agc_on
+        if agc_thresholds is not None:
+            agc_lo, agc_hi = agc_thresholds
+            agc_on = torch.where(
+                act, torch.where(pwr_avg > agc_hi, True,
+                                 torch.where(pwr_avg < agc_lo, False,
+                                             st.agc_on)), st.agc_on)
 
         bcast = lambda a: a[:, None].expand_as(ip_all)
         phase_per_epoch = (st.code_phase[:, None] + (code_dev / fs)[:, None]
@@ -318,7 +392,7 @@ def track_epochs(samples: torch.Tensor, state: ChannelState, *, fs: float,
                           code_dev=code_dev, pwr_avg=pwr_avg,
                           ip_prev=torch.where(act, ip, st.ip_prev),
                           qp_prev=torch.where(act, qp, st.qp_prev),
-                          agc_on=st.agc_on)
+                          agc_on=agc_on)
 
     n_chan = state.active.shape[0]
     if not outs:
@@ -328,3 +402,21 @@ def track_epochs(samples: torch.Tensor, state: ChannelState, *, fs: float,
     flat = [torch.stack(parts).transpose(1, 2).reshape(-1, n_chan)
             for parts in zip(*outs)]
     return st, EpochOut(*flat)
+
+
+def carrier_pull_in(state: ChannelState, if_offset_hz: float = 0.0
+                    ) -> ChannelState:
+    """Re-seed the carrier loop from the locked code rate (copied from
+    tpu_gnss/track/channel.py:684-698).
+
+    The reference's acquisition-phase trick: the code loop always locks,
+    so after a settling period the code Doppler gives a carrier Doppler
+    estimate well inside the Costas capture range
+    (reference: c/channel.cpp:190-207).  Resets the PLL integrator so the
+    filter restarts around the new seed.
+    """
+    ca_dop = state.code_dev
+    lo_dop = ca_dop * (L1_HZ / CHIP_RATE_HZ) + if_offset_hz
+    return state._replace(
+        carrier_seed=torch.where(state.active, lo_dop, state.carrier_seed),
+        pll_acc=torch.where(state.active, 0.0, state.pll_acc))
