@@ -63,8 +63,8 @@ prints no result line):
    common offset, once per link (int8, int4, int2, float32): >= 4
    detections, the same PRNs on every link, those channels locked, the
    oscillator-offset estimate within 250 Hz of the truth, and int4 / int2
-   against int8 within the reference's bars; the MB uploaded per second
-   of signal.
+   against int8 within the reference's bars (whole prompt history, no
+   sign allowance); the MB uploaded per second of signal.
 10. The ``rtlsdr`` preset (2.8 Msps, 2857 rows): a 4 s uint8 scene at
    -18 kHz through the int8 link, with phase 9's gates.
 11. Live mode: a writer thread grows phase 3's 1-bit capture at 4x real
@@ -73,8 +73,27 @@ prints no result line):
    60 m.
 12. The gather correlator (``fft_correlator=False``) on the first 4 s of
    phase 3's capture must lock the channels the FFT path locks.
+13. ``gps_test`` on the card: the Nottingham 5-SV golden reconstruction
+   (tests/test_acquire.py:140-168) as a 1-bit capture six compat runs
+   long, through the port's ``run_capture`` in the compat, native and
+   folded modes on the card (six runs) and then on the CPU (two) in the
+   same process: the first two runs agree (satellite, lo_shift, ca_shift
+   rows equal; unrounded SNR within 2e-3, 0.03 for the folded mode's
+   TF32 kernel), ``gps_test.main`` on the card prints those rows, native
+   run 0 gives the golden table within one sample, the folded mode
+   launches ``fold_corr_reduce``; each mode's wall per run (median of
+   runs 1-5, with min and max) and Msample*PRN*bin/s.
+14. Warm start: the CLI with ``--checkpoint`` on phase 3's capture, then
+   ``--warm-start`` with ``--tow`` pinned on its first 8 s (the
+   directed-search line, a fix within 150 m), then
+   ``process_source(warm_ephemerides=, search_prns=[2, 3, 4, 5, 6])`` on 8
+   s (detections inside the subset, a fix within 150 m, every receiver
+   kernel launched); seconds of signal to the first fix cold against warm,
+   and the cold search's device time for 5 PRNs against 32.
 
-Phases 8-12 run before 6-7, inside phase 3's temporary directory.  Every
+Phase 2 also holds ``fold_corr_reduce`` at the e2e shape with 5 and 11 SVs
+(the directed search's SV counts).  Phases 8-14 run before 6-7, inside
+phase 3's temporary directory.  Every
 receiver run prints its wall, realtime factor, ``receiver.transfer``
 seconds and launch counts.
 The last two lines are a JSON object describing the kernels and the
@@ -171,9 +190,14 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def fold_case(fs: float, rows: int, n_acc: int, dev, seed: int):
+ALL_PRNS = tuple(range(1, 33))
+
+
+def fold_case(fs: float, rows: int, n_acc: int, dev, seed: int,
+              prns=ALL_PRNS):
     """Folded blocks holding all 32 SVs' replicas at row-dependent code
-    shifts plus noise: every (row, SV) cell has an unambiguous peak."""
+    shifts plus noise, and the code planes of ``prns`` (the directed
+    search's subsets): every (row, SV) cell has an unambiguous peak."""
     from tpu_gnss_torch.acquire.folded import (fft_len_for_period,
                                                period_replicas_np)
     from tpu_gnss_torch.ops import mxu_corr as mc
@@ -193,8 +217,9 @@ def fold_case(fs: float, rows: int, n_acc: int, dev, seed: int):
     shp = (rows, n_acc, u_rows, n1)
     xr = torch.from_numpy(xp.real.astype(np.float32).reshape(shp)).to(dev)
     xi = torch.from_numpy(xp.imag.astype(np.float32).reshape(shp)).to(dev)
+    sel = reps[[p - 1 for p in prns]]
     cr, ci = mc.fold_code_planes_T(
-        np.fft.fft(reps.astype(np.float64), n=nf, axis=-1), period)
+        np.fft.fft(sel.astype(np.float64), n=nf, axis=-1), period)
     cr, ci = torch.from_numpy(cr).to(dev), torch.from_numpy(ci).to(dev)
     return (xr, xi, cr, ci), dict(period=period, nf=nf)
 
@@ -250,20 +275,21 @@ def compare_reduce(name, label, kernel, plain, desc, cmacs, nbytes):
     return dict(max_abs_err=err, max_rel_err=rel, **t)
 
 
-def check_fold(fs, rows, n_acc, dev, label):
+def check_fold(fs, rows, n_acc, dev, label, prns=ALL_PRNS):
     from tpu_gnss_torch.ops import mxu_corr as mc
-    args, kw = fold_case(fs, rows, n_acc, dev, seed=rows + n_acc)
+    args, kw = fold_case(fs, rows, n_acc, dev, seed=rows + n_acc, prns=prns)
+    n_sv = len(prns)
     t = mc.four_step_np(kw["nf"], kw["period"])
     inv, fwd = four_step_cmacs(t["n1"], t["n2"], t["q_cols"], t["u_rows"])
     nbytes = (sum(a.numel() for a in args) * 4     # x and code planes
-              + rows * 32 * 12)                    # peak, lag, total
+              + rows * n_sv * 12)                  # peak, lag, total
     return compare_reduce(
         "fold_corr_reduce", label,
         lambda: mc.fold_corr_reduce(*args, **kw),
         lambda: mc.fold_corr_reduce_plain(*args, **kw),
-        f"rows={rows} n_sv=32 nf={kw['nf']} ({t['n1']}x{t['n2']}) "
+        f"rows={rows} n_sv={n_sv} nf={kw['nf']} ({t['n1']}x{t['n2']}) "
         f"u_rows={t['u_rows']} q_cols={t['q_cols']} n_acc={n_acc}",
-        rows * n_acc * (fwd + 32 * inv), nbytes)
+        rows * n_acc * (fwd + n_sv * inv), nbytes)
 
 
 def track_case(fs, dev, spacing=0.5):
@@ -429,6 +455,24 @@ def profile_fold_split(dev) -> None:
     log("fold_corr_reduce profiler split (nottingham 73x32, per call, "
         f"{calls} calls): " + ", ".join(f"{k} {v:.3f} ms"
                                         for k, v in sorted(split.items())))
+
+
+def device_busy_ms(fn, calls: int = 5):
+    """Device time per call of ``fn``: the summed durations of the CUDA
+    kernels and copies ``torch.profiler`` records over ``calls`` calls (a
+    CUDA-event span would also count the gaps where the card waits for a
+    host-bound caller).  None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", None)
+             or getattr(ev, "self_cuda_time_total", 0.0)
+             for ev in prof.key_averages())
+    return us / 1e3 / calls if us > 0 else None
 
 
 def drive_corr_reduce(dev) -> int:
@@ -814,10 +858,10 @@ def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
     locked; the receiver's oscillator-offset estimate must sit within
     250 Hz of ``offset_hz`` plus the detected SVs' true median Doppler;
     int4 and int2 must meet the reference's bars against int8
-    (tests/test_stream.py:494-537), read after the 200-epoch pull-in and
-    up to the Costas loop's half-cycle ambiguity: on these 6-SV scenes a
-    loop may settle at the other phase, and the pull-in transients then
-    differ (whole-history figures are printed beside)."""
+    (tests/test_stream.py:494-537): the whole prompt history, no sign
+    allowance, and for int2 the NAV-bit signs after the 200-epoch pull-in.
+    The JAX receiver keeps one Costas phase on every link of this scene,
+    as the port does (tests/test_torch_link_flip.py)."""
     from tpu_gnss_torch import PRESETS
     from tpu_gnss_torch.io.stream import IQFileSource
     from tpu_gnss_torch.receiver import Receiver
@@ -869,21 +913,15 @@ def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
         for a, b in zip(runs[link]["res"].channels, base.channels):
             if (a.prn, a.start_epoch) != (b.prn, b.start_epoch):
                 fail(f"{preset} {link}: channel {a.ch} differs from int8")
-            # after the 200-epoch pull-in, and up to the Costas loop's
-            # half-cycle ambiguity: the loop is data-insensitive and may
-            # settle at either phase (frame sync reads the inverted
-            # stream the same); the whole-history figure is printed too
+            rel = float(np.linalg.norm(a.ip_hist - b.ip_hist)
+                        / np.linalg.norm(b.ip_hist))
             ia, ib = a.ip_hist[200:], b.ip_hist[200:]
-            flip = 1.0 if float(np.dot(ia, ib)) >= 0 else -1.0
-            rel = float(np.linalg.norm(flip * ia - ib) / np.linalg.norm(ib))
-            rel_all = float(np.linalg.norm(flip * a.ip_hist - b.ip_hist)
-                            / np.linalg.norm(b.ip_hist))
-            sign = float(np.mean(np.sign(flip * ia) == np.sign(ib)))
-            log(f"  {link} PRN {a.prn}: prompt rel after epoch 200 "
-                f"{rel:.4f} (bar {bar}; whole history {rel_all:.4f}), sign "
-                f"agreement after epoch 200 {sign:.4f}"
-                + (" (locked at the opposite Costas phase)"
-                   if flip < 0 else ""))
+            sign = float(np.mean(np.sign(ia) == np.sign(ib)))
+            log(f"  {link} PRN {a.prn}: prompt rel {rel:.4f} over the whole "
+                f"history (bar {bar}), sign agreement after epoch 200 "
+                f"{sign:.4f}"
+                + (" (locked at the other Costas half-cycle)"
+                   if float(np.dot(ia, ib)) < 0 else ""))
             if not rel < bar or (link == "int2" and not sign > 0.98):
                 fail(f"{preset} {link} PRN {a.prn}: prompt rel {rel}, sign "
                      f"agreement {sign}")
@@ -968,6 +1006,333 @@ def gather_run(cfg, path, dev, duration=4.0):
         fail("gather: locked channels differ from the FFT path's")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: gps_test on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_acquire.py:150-152: (prn, lo_shift, ca_shift) of the
+# Nottingham capture's published table
+NOTT_GOLDEN = ((1, 6, 1465), (21, 8, 686), (29, -9, 3868), (30, -9, 2998),
+               (31, -8, 2337))
+GPS_TEST_RTOL = 2e-3    # SNR, the bar of tests/test_acquire.py:47
+
+
+GPS_TEST_CMP_RUNS = 2   # runs held card against CPU and printed by main
+GPS_TEST_TIME_RUNS = 6  # card runs per mode: the first, then 5 timed
+
+
+def golden_capture(cfg, tmpdir) -> str:
+    """tests/test_acquire.py:140-168's synthetic reconstruction of the
+    Nottingham capture (5 SVs at the golden Doppler bins and code phases,
+    noise 1.5, seed 29), written as a 1-bit capture GPS_TEST_TIME_RUNS
+    compat runs long."""
+    from tpu_gnss_torch.cli.search_runner import block_stride_samples
+    from tpu_gnss_torch.io import loaders
+    from tpu_gnss_torch.signal import synth
+    n = GPS_TEST_TIME_RUNS * len(cfg.prns) * block_stride_samples(cfg.fft_len)
+    iq = synth.synth_baseband(
+        [synth.SvSignal(prn=p, doppler_hz=lo * cfg.dop_bin_hz,
+                        code_phase_chips=ca * 1023.0 / cfg.lags)
+         for p, lo, ca in NOTT_GOLDEN], cfg.fs, n, noise_std=1.5, seed=29)
+    path = os.path.join(tmpdir, "nottingham_golden.bin")
+    with open(path, "wb") as f:
+        f.write(loaders.pack_1bit(synth.baseband_to_1bit_if(iq, cfg.fc,
+                                                              cfg.fs)))
+    return path
+
+
+def parse_tables(out: str) -> list:
+    """Per run of a gps_test table: the satellite / lo_shift / ca_shift
+    rows, the SNR row and the all-PRN SNR row."""
+    lines = out.splitlines()
+    runs = []
+    for i, ln in enumerate(lines):
+        if "satellite:" in ln:
+            row = lambda k: lines[i + k].split(":", 1)[1].split()
+            runs.append(dict(sv=[int(x) for x in row(0)],
+                             snr=[float(x) for x in row(1)],
+                             lo=[int(x) for x in row(2)],
+                             ca=[int(x) for x in row(3)],
+                             all_snr=[float(x) for x in lines[i + 4].split()]))
+    return runs
+
+
+def hit_rows(run: dict) -> tuple:
+    """A run's satellite, lo_shift and ca_shift rows (its table's integer
+    rows) from ``run_capture``'s detections."""
+    return tuple([h[k] for h in run["hits"]]
+                 for k in ("sv", "lo_shift", "ca_shift"))
+
+
+def gps_test_phase(tmpdir, dev):
+    """Phase 13: the port's ``run_capture`` in all three modes on the
+    card (GPS_TEST_TIME_RUNS runs, launch counts and walls from that run),
+    then on the CPU (GPS_TEST_CMP_RUNS runs) in the same process.  Its
+    first runs agree: satellite, lo_shift and ca_shift rows equal, and
+    every PRN's unrounded SNR within GPS_TEST_RTOL, FOLD_TOL for the
+    folded mode, whose card run is the TF32 kernel and whose CPU run the
+    FFT grid engine.  ``gps_test.main`` on the card prints those rows.
+    Native run 0 gives the golden table.  Each mode's wall per run is the
+    median of the runs after the first, with its spread."""
+    import io
+    from tpu_gnss_torch import PRESETS, kernels
+    from tpu_gnss_torch.acquire.folded import FoldedSearcher
+    from tpu_gnss_torch.acquire.search import _first_argmax
+    from tpu_gnss_torch.cli import gps_test
+    from tpu_gnss_torch.cli.search_runner import run_capture
+    cfg = PRESETS["nottingham"]
+    path = golden_capture(cfg, tmpdir)
+    n_cmp, n_time = GPS_TEST_CMP_RUNS, GPS_TEST_TIME_RUNS
+
+    folded = FoldedSearcher(cfg, device=dev)
+    n_dop = {"compat": cfg.num_dop_bins, "native": cfg.num_dop_bins,
+             "folded": len(folded.dops_hz)}
+    block = {"compat": len(cfg.prns) * cfg.fft_len, "native": cfg.fft_len,
+             "folded": folded.block_len}
+    prns_per_sample = {"compat": 1, "native": 32, "folded": 32}
+    out = {}
+    for mode in ("compat", "native", "folded"):
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.reset()
+        walls, card = [], []
+        t0 = time.perf_counter()
+        for run in run_capture(path, cfg, mode, max_runs=n_time, device=dev):
+            walls.append(time.perf_counter() - t0)
+            card.append(run)
+            t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        launches = {k: kernels.LAUNCHES.get(k) for k in RECEIVER_KERNELS}
+        cpu = list(run_capture(path, cfg, mode, max_runs=n_cmp,
+                               device="cpu"))
+        if len(card) != n_time or len(cpu) != n_cmp:
+            fail(f"gps_test {mode}: {len(card)} card runs, {len(cpu)} CPU "
+                 f"runs, want {n_time} and {n_cmp}")
+        for r, (a, b) in enumerate(zip(card, cpu)):
+            if hit_rows(a) != hit_rows(b):
+                fail(f"gps_test {mode} run {r}: card rows {hit_rows(a)} "
+                     f"differ from the CPU's {hit_rows(b)}")
+        rtol = FOLD_TOL["rtol"] if mode == "folded" else GPS_TEST_RTOL
+        a = np.stack([run["all_snr"] for run in card[:n_cmp]])
+        b = np.stack([run["all_snr"] for run in cpu])
+        worst = float((np.abs(a - b) / np.abs(b)).max())
+        if not worst <= rtol:
+            fail(f"gps_test {mode}: SNR rel diff {worst} card against CPU "
+                 f"(rtol {rtol})")
+        # the entry point prints the same rows
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = gps_test.main([path, "--mode", mode, "--max-runs",
+                                str(n_cmp), "--device", "cuda"])
+        printed = parse_tables(buf.getvalue())
+        if rc or [(t["sv"], t["lo"], t["ca"]) for t in printed] != \
+                [hit_rows(run) for run in card[:n_cmp]]:
+            fail(f"gps_test {mode}: main on the card (exit code {rc}) "
+                 f"printed {printed}, run_capture gave "
+                 f"{[hit_rows(run) for run in card[:n_cmp]]}")
+        timed = walls[1:]
+        wall = float(np.median(timed))
+        cells = block[mode] * prns_per_sample[mode] * n_dop[mode]
+        rate = cells / wall / 1e6
+        log(f"gps_test {mode}: {n_cmp} runs, card and CPU tables agree "
+            f"(max SNR rel diff {worst:.2e}, rtol {rtol}), main prints them; "
+            f"SVs {[s + 1 for s in hit_rows(card[0])[0]]}"
+            f", wall per run {walls[0]:.4f} s first, median of the next "
+            f"{len(timed)} {wall:.5f} s (min {min(timed):.5f}, max "
+            f"{max(timed):.5f}) = {rate:.1f} Msample*PRN*bin/s; launches "
+            f"{launches}")
+        out[mode] = dict(launches=launches, wall_s=wall, rate=rate,
+                         rows=[hit_rows(run) for run in card])
+    got = {sv + 1: (lo, ca) for sv, lo, ca in zip(*out["native"]["rows"][0])}
+    for prn, lo, ca in NOTT_GOLDEN:
+        if prn not in got or got[prn][0] != lo or abs(got[prn][1] - ca) > 1:
+            fail(f"gps_test native run 0: PRN {prn} gives {got.get(prn)}, "
+                 f"golden ({lo}, {ca})")
+    log("gps_test native run 0: the golden (prn, lo_shift, ca_shift) table")
+    need_launched("gps_test folded", out["folded"]["launches"],
+                  ("fold_corr_reduce",))
+    # torch.argmax on the card: first of equal maxima (the searcher breaks
+    # ties explicitly all the same)
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0], [5.0] * 4, [0.0, 7.0, 2.0, 7.0]],
+                     device=dev).repeat(1000, 1)
+    am, fm = x.argmax(-1), _first_argmax(x)
+    log(f"torch.argmax on the card, equal maxima: first one "
+        f"{bool(torch.equal(am, fm))} ({am[:3].tolist()}); explicit tie-break "
+        f"{fm[:3].tolist()}")
+    if fm[:3].tolist() != [1, 0, 1]:
+        fail("explicit first-maximum tie-break wrong on the card")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: warm start on the card
+# ---------------------------------------------------------------------------
+
+DIRECTED = [2, 3, 4, 5, 6]
+
+
+def cli_run(argv):
+    """The port's receiver CLI in-process; its stdout and launch counts
+    (set to 0 just before)."""
+    import io
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.cli import run_receiver as cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc:
+        fail(f"run_receiver {argv}: exit code {rc}")
+    return (buf.getvalue(), {k: kernels.LAUNCHES.get(k)
+                             for k in RECEIVER_KERNELS}, wall)
+
+
+def cli_fix_error(out: str, rx) -> float:
+    """Error of the last fix row the CLI printed (n_sats, iters, t_bias,
+    lat, lon, alt[, velocity]) against the truth; nan without a fix."""
+    from tpu_gnss_torch.pvt.solve import geodetic_to_ecef
+    lines = out.splitlines()
+    i = next((k for k, ln in enumerate(lines) if ln.startswith("fixes (")),
+             None)
+    last = None
+    for ln in lines[i + 1:] if i is not None else []:
+        parts = ln.split(",")
+        if len(parts) < 6:          # the DMS page follows the fix rows
+            break
+        last = parts
+    if last is None:
+        return float("nan")
+    lla = (float(last[3]), float(last[4]), float(last[5].split()[0]))
+    return float(np.linalg.norm(np.array(geodetic_to_ecef(*lla))
+                                - np.array(rx)))
+
+
+def first_fix_seconds(cfg, path, rx, seconds, dev, **kw):
+    """The shortest capture, among ``seconds``, from which the receiver
+    fixes within 150 m (batch mode decodes all of a capture before it
+    solves, so a fix at an early snapshot of a long run may lean on NAV
+    data from later: only a run cut at ``max_duration_s`` shows what that
+    much signal gives).  ``(seconds, launches)``, or ``(None, None)``."""
+    from tpu_gnss_torch.io.stream import FileSource1Bit
+    from tpu_gnss_torch.receiver import Receiver
+    for t in seconds:
+        res, _, launches, _ = drive(
+            f"first fix {t:g} s{' warm' if kw else ' cold'}",
+            Receiver(cfg, device=dev), FileSource1Bit(path, cfg), t,
+            max_duration_s=t, **kw)
+        if res.solutions and fix_error(res, rx) < 150.0:
+            return t, launches
+    return None, None
+
+
+def warm_start_phase(cfg, path, rx, tmpdir, dev):
+    """Phase 14: the CLI writes a checkpoint from the 20 s e2e capture;
+    ``--warm-start`` with ``--tow`` pinned on its first 8 s prints the
+    directed-search line and fixes within 150 m (tests/test_e2e.py:260);
+    ``process_source(warm_ephemerides=, search_prns=[2, 3, 4, 5, 6])`` on
+    8 s keeps its detections in the subset, fixes within 150 m and
+    launches every receiver kernel.  Then the seconds of signal the first
+    fix needs, cold against warm (directed), and the cold search's device
+    time for the directed set against all 32 PRNs."""
+    from tpu_gnss_torch.acquire.folded import (FoldedSearcher,
+                                               acquire_refined_mxu)
+    from tpu_gnss_torch.io import loaders
+    from tpu_gnss_torch.io.stream import FileSource1Bit
+    from tpu_gnss_torch.receiver import Receiver
+    from tpu_gnss_torch.signal.scene import T_OE
+    from tpu_gnss_torch.utils.checkpoint import load_state
+    import dataclasses
+    ckpt = os.path.join(tmpdir, "e2e_state.npz")
+    argv = [path, str(cfg.fc), str(cfg.fs), "5000", "--fft-len",
+            str(cfg.fft_len), "--threshold", str(cfg.snr_threshold),
+            "--device", "cuda"]
+    out, launches_ck, wall = cli_run(argv + ["--checkpoint", ckpt])
+    state = load_state(ckpt, device=dev)
+    saved = next((ln for ln in out.splitlines()
+                  if ln.startswith("state saved to")), None)
+    log(f"warm start: CLI cold run with --checkpoint, wall {wall:.3f} s, "
+        f"{saved!r}; ephemerides {sorted(state.get('ephemerides', {}))}, "
+        f"almanac {sorted(state.get('almanac', {}))}, launches {launches_ck}")
+    if saved is None or len(state.get("ephemerides", {})) < 4 \
+            or "last_fix" not in state.get("meta", {}):
+        fail("warm start: the checkpoint lacks ephemerides or a last fix")
+    need_launched("CLI --checkpoint", launches_ck, RECEIVER_KERNELS)
+    out_w, launches_cw, wall_w = cli_run(
+        argv + ["--duration", "8", "--warm-start", ckpt,
+                "--tow", str(T_OE + 90.0)])
+    line = next((ln for ln in out_w.splitlines()
+                 if ln.startswith("directed search:")), None)
+    err_cli = cli_fix_error(out_w, rx)
+    log(f"warm start: CLI --warm-start --tow {T_OE + 90.0:g} on 8 s, wall "
+        f"{wall_w:.3f} s, {line!r}, last fix error {err_cli:.2f} m, "
+        f"launches {launches_cw}")
+    if line is None or not err_cli < 150.0:
+        fail("warm start: no directed-search line, or no fix within 150 m "
+             "in 8 s")
+    need_launched("CLI --warm-start", launches_cw, RECEIVER_KERNELS)
+    recv = Receiver(cfg, device=dev)
+    res, wall_r, launches, _ = drive(
+        "warm 8 s directed", recv, FileSource1Bit(path, cfg), 8.0,
+        max_duration_s=8.0, warm_ephemerides=state["ephemerides"],
+        search_prns=DIRECTED)
+    det = sorted(d["prn"] for d in res.detections)
+    err = fix_error(res, rx)
+    log(f"warm 8 s directed: detections {det} (subset {DIRECTED}), "
+        f"{len(res.solutions)} fixes, last error {err:.2f} m, directed "
+        f"searcher retired {recv._searcher_directed is None}")
+    if not det or not set(det) <= set(DIRECTED) or not err < 150.0 \
+            or recv._searcher_directed is not None:
+        fail("warm start: detections outside the directed subset, no fix "
+             "within 150 m, or the directed searcher not retired")
+    need_launched("warm 8 s directed", launches, RECEIVER_KERNELS)
+    ttff_cold, _ = first_fix_seconds(cfg, path, rx, (12, 14, 16, 18, 20),
+                                     dev)
+    ttff_warm, _ = first_fix_seconds(
+        cfg, path, rx, (3, 4, 5, 6, 7, 8), dev,
+        warm_ephemerides=state["ephemerides"], search_prns=DIRECTED)
+    if ttff_cold is None or ttff_warm is None:
+        fail(f"warm start: first fix cold {ttff_cold} s, warm {ttff_warm} s")
+    # the cold search (kernel grid reduce + refine, one block) on the
+    # capture's head, for the directed subset and for all 32 PRNs: its
+    # device time, and its wall per call with the host's launches
+    searchers = {
+        "directed 5": FoldedSearcher(
+            dataclasses.replace(cfg, prns=tuple(DIRECTED)), device=dev),
+        "all 32": FoldedSearcher(cfg, device=dev)}
+    n_head = searchers["all 32"].block_len
+    with open(path, "rb") as f:
+        bits = loaders.unpack_1bit(f.read(-(-n_head // 8)))[:n_head]
+    head = torch.from_numpy(bits).to(dev)
+    times = {}
+    for name, s in searchers.items():
+        c = s.cfg
+        cw_r, cw_i = s.mxu_code_planes()
+        busy = device_busy_ms(lambda: acquire_refined_mxu(
+            head, cw_r, cw_i, s.code_ffts_p, s.dops_hz, fs=c.fs,
+            lo_rate=c.lo_rate, n_coherent=s.n_coherent, from_bits=True,
+            period=s.period, nf=s.nf))
+        s.detections_refined_fast(bits=bits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            s.detections_refined_fast(bits=bits)
+        times[name] = dict(device_ms=busy,
+                           wall_ms=(time.perf_counter() - t0) * 100.0)
+    fmt = lambda t: ("not measured" if t["device_ms"] is None
+                     else f"{t['device_ms']:.3f} ms") + \
+        f" of device time, {t['wall_ms']:.3f} ms wall"
+    log(f"warm start: the first fix needs {ttff_warm:g} s of signal warm "
+        f"(directed) against {ttff_cold:g} s cold; the cold search takes "
+        f"{fmt(times['directed 5'])} for the 5 directed PRNs against "
+        f"{fmt(times['all 32'])} for all 32")
+    return dict(launches=launches, launches_cli=launches_cw,
+                launches_checkpoint=launches_ck, ttff_cold=ttff_cold,
+                ttff_warm=ttff_warm, search_ms=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1005,6 +1370,10 @@ def main() -> int:
                               "track_corr", "mix_packed")}
     fold_e2e = shapes["fold_corr_reduce"]["e2e"] = check_fold(
         2.048e6, 41, 1, dev, "e2e")
+    # the directed cold search's SV counts (phase 14 runs the first)
+    for prns in (tuple(DIRECTED), tuple(range(1, 12))):
+        shapes["fold_corr_reduce"][f"e2e {len(prns)} SVs"] = check_fold(
+            2.048e6, 41, 1, dev, f"e2e-{len(prns)}sv", prns=prns)
     check_fold(2.048e6, 41, 8, dev, "e2e-weak")
     check_fold(5.456e6, 73, 1, dev, "nottingham")
     check_fold(PRESETS["synthetic"].fs, 49, 1, dev, "synthetic")
@@ -1111,6 +1480,16 @@ def main() -> int:
                                                     tmp, dev)
         # --- phase 12: the gather correlator -----------------------------
         gather_run(cfg, path_e2e, dev)
+        # --- phase 14: warm start ----------------------------------------
+        warm = warm_start_phase(cfg, path_e2e, rx, tmp, dev)
+        by_run["CLI --checkpoint e2e 20 s"] = warm["launches_checkpoint"]
+        by_run["CLI --warm-start --tow e2e 8 s"] = warm["launches_cli"]
+        by_run["warm directed 5 PRNs e2e 8 s"] = warm["launches"]
+        # --- phase 13: gps_test on the card -------------------------------
+        gps = gps_test_phase(tmp, dev)
+        for mode, r in gps.items():
+            by_run[f"gps_test {mode} nottingham {GPS_TEST_TIME_RUNS} runs"] = \
+                r["launches"]
 
     # --- phase 6: the folded search API at the nottingham geometry ------
     folded_search(cfg_n, dev)

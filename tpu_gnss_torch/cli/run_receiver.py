@@ -5,13 +5,14 @@
         [--link int8|int4|int2|float32] [--duration S] [--threshold T]
         [--channels N] [--fft-len N] [--follow] [--stall-timeout S]
         [--max-lag S] [--max-history S] [--if-offset HZ|auto]
-        [--nmea-out FILE] [--iq-log FILE.npz] [--rtl-freq HZ]
-        [--rtl-gain DB] [--rtl-ppm PPM] [--device cuda|cuda:1|cpu]
+        [--nmea-out FILE] [--iq-log FILE.npz] [--checkpoint FILE.npz]
+        [--warm-start FILE.npz] [--no-directed] [--tow SEC]
+        [--rtl-freq HZ] [--rtl-gain DB] [--rtl-ppm PPM]
+        [--device cuda|cuda:1|cpu]
 
 The counterpart of ``python -m tpu_gnss.cli.run_receiver``
-(tpu_gnss/cli/run_receiver.py).  Warm start (``--checkpoint``,
-``--warm-start``, ``--no-directed``, ``--tow``) and the device mesh
-(``--mesh-devices``) are not ported: argparse rejects those flags.
+(tpu_gnss/cli/run_receiver.py); it prints the same report.  The device
+mesh (``--mesh-devices``) is not ported: argparse rejects that flag.
 """
 
 from __future__ import annotations
@@ -19,15 +20,17 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 
 from ..config import PRESETS, ReceiverConfig
 from ..io.stream import (FileSource1Bit, FollowIQSource, FollowSource1Bit,
                          IQFileSource, RtlTcpSource)
+from ..nav.almanac import visible_prns
 from ..receiver import TRANSFER_DTYPES, Receiver
-from ..track.quality import pll_lock_metric
 from ..utils import metrics
+from ..utils.checkpoint import load_state, save_state
 from ..utils.metrics import METRICS
 from . import nmea_out
 
@@ -58,6 +61,127 @@ def _rtltcp_source(args):
           f"{src.tuner_gain_count} gain steps), fs={args.fs:g}, "
           f"freq={args.rtl_freq:g}")
     return src, None
+
+
+def _warm_start(args, cfg):
+    """``(warm ephemerides, directed PRNs or None)`` from the
+    ``--warm-start`` checkpoint, with the almanac visibility prediction at
+    the checkpoint's fix TOW aged by wall time, or at ``--tow``
+    (tpu_gnss/cli/run_receiver.py:183-228)."""
+    # the ephemerides and almanac are host data: channel state, if the file
+    # holds any, stays on the CPU
+    state = load_state(args.warm_start, device="cpu")
+    warm = state.get("ephemerides")
+    print(f"warm start: ephemerides for PRNs {sorted(warm or {})}")
+    # almanac-directed cold search: a stored almanac plus the last fix
+    # predicts which PRNs are above the horizon now, so the sweep covers
+    # the visible subset instead of all 32 (with in-receiver fallback to
+    # the full sweep if it under-delivers)
+    alms = state.get("almanac")
+    last = (state.get("meta") or {}).get("last_fix")
+    if args.no_directed or not alms or not last:
+        return warm, None
+    # the stored TOW is the previous session's time: predict at the
+    # checkpoint time + elapsed wall clock.  Checkpoints without a wall
+    # timestamp cannot be aged; prediction then runs at the stored TOW
+    tow = float(last["tow"])
+    wall = last.get("wall")
+    if args.tow is not None:
+        tow = float(args.tow)
+    elif wall is not None:
+        age = max(0.0, time.time() - float(wall))
+        tow = (tow + age) % 604800.0
+        if age > 60.0:
+            print(f"warm start: advancing visibility time by "
+                  f"{age/60.0:.1f} min since checkpoint")
+    pred = visible_prns(alms, last["ecef"], tow, mask_deg=5.0,
+                        margin_s=1800.0)
+    # only a non-empty proper subset directs the sweep (process_source
+    # discards anything else): say which it is
+    if pred and set(pred) < set(cfg.prns):
+        print(f"directed search: almanac predicts PRNs {pred} "
+              f"visible ({len(alms)} almanac entries)")
+        return warm, pred
+    why = ("no PRNs predicted visible (stale fix/time?)"
+           if not pred else "all PRNs predicted visible")
+    print(f"almanac present but {why}; running the full "
+          f"{len(cfg.prns)}-PRN sweep")
+    return warm, None
+
+
+def _report(args, result, recv, cfg) -> None:
+    """The end-of-run report of tpu_gnss/cli/run_receiver.py:275-349:
+    detections, channel bars, fixes with the DMS and GPS day-time pages,
+    the I/Q constellation, NMEA and checkpoint lines."""
+    print(f"\nacquired {len(result.detections)} SVs:")
+    for d in result.detections:
+        print(f"  PRN {d['prn']:2d}  snr {d['snr']:7.1f}  "
+              f"dopp {d['doppler_hz']:+8.1f} Hz  ca {d['ca_shift']:7.1f}")
+
+    live = [r for r in result.channels if not r.lost]
+    if live:
+        prns = [r.prn for r in live]
+        pows = [float(np.mean(np.square(np.asarray(r.ip_hist[-50:]))))
+                if len(r.ip_hist) else 0.0 for r in live]
+        stat = []
+        for r in live:
+            base = ("eph" if r.eph.valid() else
+                    (f"sf{len(r.subframes)}" if r.subframes else "track"))
+            if r.cn0_dbhz and r.cn0_dbhz == r.cn0_dbhz:
+                base += f" {r.cn0_dbhz:.0f}dBHz"
+            stat.append(base)
+        print("\n" + metrics.channel_bars(prns, pows, statuses=stat))
+
+    if result.solutions:
+        print("\nfixes (n_sats, iters, t_bias, lat, lon, alt):")
+        for s in result.solutions:
+            print("  " + metrics.solution_line(s))
+        # the reference LCD's DMS + day/time pages (c/user.cpp:160-201)
+        last = result.solutions[-1]
+        print("  " + metrics.latlon_dms(last.lat_deg, last.lon_deg))
+        week = next((r.eph.week for r in result.channels
+                     if r.eph.valid()), None)
+        if week is not None:
+            print("  " + metrics.gps_day_time(int(week), last.t_rx))
+    else:
+        print("\nno position fix (need >=4 decoded ephemerides; capture "
+              "must span >=3 subframes / ~18 s of NAV data)")
+
+    if args.iq_log:
+        tracked = [r for r in result.channels if len(r.ip_hist)]
+        if tracked:
+            metrics.save_iq_log(args.iq_log, tracked)
+            best = max(tracked, key=lambda r: float(
+                np.mean(np.square(np.asarray(r.ip_hist[-200:])))))
+            # skip the pull-in transient when there is history beyond it
+            skip = 200 if len(best.ip_hist) > 400 else 0
+            print(f"\nIQ log ({len(tracked)} channels) -> {args.iq_log}; "
+                  f"PRN {best.prn} prompt constellation:")
+            print(metrics.iq_scatter_ascii(best.ip_hist[skip:],
+                                           best.qp_hist[skip:]))
+
+    if args.nmea_out:
+        week = next((int(r.eph.week) for r in result.channels
+                     if r.eph.valid()), None)
+        n = nmea_out.write_track(args.nmea_out, result.solutions, week=week)
+        print(f"\n{n} NMEA sentences -> {args.nmea_out}")
+
+    if args.checkpoint:
+        meta = dict(fs=cfg.fs, fc=cfg.fc, file=args.filename)
+        if result.solutions:
+            s = result.solutions[-1]
+            # the wall timestamp lets the next session age the TOW before
+            # predicting visibility
+            meta["last_fix"] = dict(ecef=[s.x, s.y, s.z], tow=float(s.t_rx),
+                                    wall=time.time())
+        save_state(args.checkpoint,
+                   ephemerides={r.prn: r.eph for r in result.channels
+                                if r.eph.valid()},
+                   detections=result.detections, almanac=recv.almanac,
+                   meta=meta)
+        print(f"\nstate saved to {args.checkpoint}"
+              + (f" ({len(recv.almanac)} almanac entries)"
+                 if recv.almanac else ""))
 
 
 def main(argv=None) -> int:
@@ -110,7 +234,23 @@ def main(argv=None) -> int:
                    help="write fixes as NMEA GGA/GSA/GSV/RMC/VTG/GST")
     p.add_argument("--iq-log", default=None, metavar="FILE.npz",
                    help="dump per-channel prompt I/Q and code-rate "
-                        "histories")
+                        "histories and print a constellation scatter of "
+                        "the strongest channel")
+    p.add_argument("--checkpoint", default=None, metavar="FILE.npz",
+                   help="write receiver state (npz) here at the end")
+    p.add_argument("--warm-start", default=None, metavar="FILE.npz",
+                   help="load ephemerides from a previous checkpoint; a "
+                        "fix then needs one subframe (~7 s) instead of "
+                        "three (~20 s).  With a stored almanac and last "
+                        "fix, the cold search is also directed to the "
+                        "predicted-visible PRNs")
+    p.add_argument("--no-directed", action="store_true",
+                   help="disable the almanac-directed search even when "
+                        "the warm-start checkpoint could support it")
+    p.add_argument("--tow", type=float, default=None, metavar="SEC",
+                   help="override the GPS time of week of the almanac "
+                        "visibility prediction (default: the checkpoint's "
+                        "fix TOW advanced by elapsed wall time)")
     p.add_argument("--rtl-freq", type=float, default=1575.42e6,
                    metavar="HZ", help="rtl_tcp tuner center frequency")
     p.add_argument("--rtl-gain", type=float, default=None, metavar="DB",
@@ -153,6 +293,8 @@ def main(argv=None) -> int:
     else:
         src = IQFileSource(args.filename, args.fs, dtype=iq_dtype)
 
+    warm, search_prns = (_warm_start(args, cfg) if args.warm_start
+                         else (None, None))
     max_hist = args.max_history
     if max_hist is None and args.follow:
         max_hist = 600.0        # a live receiver must not grow unboundedly
@@ -176,6 +318,8 @@ def main(argv=None) -> int:
     try:
         with METRICS.stage("receiver.total"):
             result = recv.process_source(src, max_duration_s=args.duration,
+                                         warm_ephemerides=warm,
+                                         search_prns=search_prns,
                                          on_solution=on_sol)
     finally:
         if live_nmea is not None:
@@ -190,38 +334,7 @@ def main(argv=None) -> int:
               f"{getattr(src, 'max_lag_s', 0.0):.2f}s"
               + (f", skipped {skipped} bytes" if skipped else ""))
 
-    print(f"acquired {len(result.detections)} SVs:")
-    for d in result.detections:
-        print(f"  PRN {d['prn']:2d}  snr {d['snr']:7.1f}  "
-              f"dopp {d['doppler_hz']:+8.1f} Hz  ca {d['ca_shift']:7.1f}")
-    print("\nchannels:")
-    for r in result.channels:
-        lock = (pll_lock_metric(r.ip_hist, r.qp_hist, window=1000)
-                if len(r.ip_hist) else 0.0)
-        rssi = (float(np.sqrt(np.mean(np.square(r.ip_hist[-50:]))))
-                if len(r.ip_hist) else 0.0)
-        state = ("lost" if r.lost else "eph" if r.eph.valid()
-                 else f"sf{len(r.subframes)}" if r.subframes else "track")
-        print(f"  ch {r.ch:2d} PRN {r.prn:2d}  rssi {rssi:8.0f}  "
-              f"lock {lock:+.2f}  [{state}]")
-    if result.solutions:
-        print("\nfixes (n_sats, t_rx, lat, lon, alt):")
-        for s in result.solutions:
-            print(f"  {s.n_sats} {s.t_rx:12.3f} {s.lat_deg:10.5f} "
-                  f"{s.lon_deg:10.5f} {s.alt_m:8.2f}")
-    else:
-        print("\nno position fix (need >=4 decoded ephemerides; capture "
-              "must span >=3 subframes / ~18 s of NAV data)")
-    if args.iq_log:
-        tracked = [r for r in result.channels if len(r.ip_hist)]
-        if tracked:
-            metrics.save_iq_log(args.iq_log, tracked)
-            print(f"\nIQ log ({len(tracked)} channels) -> {args.iq_log}")
-    if args.nmea_out:
-        week = next((int(r.eph.week) for r in result.channels
-                     if r.eph.valid()), None)
-        n = nmea_out.write_track(args.nmea_out, result.solutions, week=week)
-        print(f"\n{n} NMEA sentences -> {args.nmea_out}")
+    _report(args, result, recv, cfg)
     print("\n" + METRICS.report())
     return 0
 

@@ -32,16 +32,17 @@ the FFT grid engine.  Channel management, the power and probation
 watchdogs, code-locked transmit time, Hatch smoothing, RAIM, the solve
 cadence, the incremental NAV decode and the trimmed-history bookkeeping
 are the reference's host code (numpy, float64).  With ``on_solution``
-(live mode) NAV decode and PVT run in-stream at the solve cadence.
+(live mode) NAV decode and PVT run in-stream at the solve cadence.  Warm
+start takes a previous run's ephemerides (``warm_ephemerides``) and the
+almanac-predicted PRNs (``search_prns``), which direct the cold search.
 
-Not ported yet: a device mesh (``mesh`` raises ``NotImplementedError``)
-and warm start (``warm_ephemerides``, the almanac-directed
-``search_prns``).
+Not ported yet: a device mesh (``mesh`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import bisect
+import copy
 import dataclasses
 import threading
 from collections import deque
@@ -309,6 +310,11 @@ class Receiver:
         self.device = resolve_device(device)
         self.searcher = FoldedSearcher(cfg, n_coherent=n_coherent,
                                        device=self.device)
+        self._n_coherent = n_coherent
+        # directed cold search (almanac warm start): a FoldedSearcher over
+        # the predicted-visible PRN subset; falls back to the full sweep
+        # when the directed set under-delivers (stale almanac)
+        self._searcher_directed = None
         # almanac store: subframe 4/5 pages and reductions of every
         # validated ephemeris (tpu_gnss/receiver.py:292-298)
         self.almanac = {}
@@ -357,29 +363,39 @@ class Receiver:
         self._tables_cache = None
 
     # ------------------------------------------------------------------
-    def _resolve_engine(self) -> str:
+    def _resolve_engine(self, searcher) -> str:
         """Concrete acquisition engine: "auto" runs the fused kernel
         engine wherever the transform length factors for it (the CUDA
         kernel on a card, its plain version on the CPU), else the FFT
         grid engine (tpu_gnss/receiver.py:404-419 without the mesh)."""
         if self.acq_engine != "auto":
             return self.acq_engine
-        return "mxu" if self.searcher.mxu_supported() else "xla"
+        return "mxu" if searcher.mxu_supported() else "xla"
 
     def _cold_detections(self, head, bits: bool = False,
                          skip_prns=frozenset()) -> list:
-        """Refined detections for channel seeding.
+        """Refined detections for channel seeding
+        (tpu_gnss/receiver.py:458-532, without the mesh engine and the
+        compile prewarm).
 
         ``head`` is a complex-baseband segment, or {0,1} samples when
         ``bits``.  A single-block search that comes up short escalates to
-        non-coherent accumulation (tpu_gnss/receiver.py:458-532, without
-        the almanac-directed searcher).
+        non-coherent accumulation.  ``skip_prns`` (already tracked) are
+        dropped and counted as found by that check.
+
+        A directed searcher (almanac warm start, ``search_prns``) sweeps
+        only the predicted-visible subset; when even the weak-signal
+        escalation leaves it short of ``weak_min_svs``, the full sweep
+        runs once as a fallback and the directed searcher is dropped.  A
+        sweep that seeds channels retires it too: its job is the cold
+        start, and later re-acquisition must reach SVs that rise beyond
+        the prediction.
         """
-        searcher = self.searcher
-        engine = self._resolve_engine()
+        searcher = self._searcher_directed or self.searcher
+        engine = self._resolve_engine(searcher)
         kw = dict(bits=head) if bits else dict(iq=head)
 
-        def run(n_nc):
+        def run(n_nc, searcher):
             if engine == "mxu":
                 return searcher.detections_refined_fast(
                     **kw, n_noncoherent=n_nc, skip_prns=skip_prns)
@@ -387,12 +403,24 @@ class Receiver:
             return [d for d in searcher.detections_refined(pwr, n_nc)
                     if d["prn"] not in skip_prns]
 
-        dets = run(1)
-        k = min(self.weak_noncoherent, len(head) // searcher.block_len)
-        if len(dets) + len(skip_prns) < self.weak_min_svs and k > 1:
-            weak = run(k)
-            if len(weak) > len(dets):
-                dets = weak
+        def sweep(searcher):
+            dets = run(1, searcher)
+            k = min(self.weak_noncoherent, len(head) // searcher.block_len)
+            if len(dets) + len(skip_prns) < self.weak_min_svs and k > 1:
+                weak = run(k, searcher)
+                if len(weak) > len(dets):
+                    dets = weak
+            return dets
+
+        dets = sweep(searcher)
+        if searcher is not self.searcher:
+            if len(dets) + len(skip_prns) < self.weak_min_svs:
+                self._searcher_directed = None
+                full = sweep(self.searcher)
+                if len(full) > len(dets):
+                    dets = full
+            elif dets:
+                self._searcher_directed = None
         return dets
 
     # ------------------------------------------------------------------
@@ -407,10 +435,24 @@ class Receiver:
     def process_source(self, source, max_duration_s: Optional[float] = None,
                        max_channels: Optional[int] = None,
                        chunk_s: float = 1.0,
+                       warm_ephemerides: Optional[dict] = None,
+                       search_prns=None,
                        on_solution=None) -> "ReceiverResult":
         """Streaming full chain over a :mod:`tpu_gnss_torch.io.stream`
         source (bounded memory: only per-epoch correlator outputs are
         kept).
+
+        ``warm_ephemerides``: {prn: Ephemeris} from a previous run's
+        checkpoint.  A warm channel only needs one TLM/HOW pair or
+        subframe (any id) for its TOW anchor instead of decoding all of
+        1-3 — first fix in ~7 s of capture instead of ~20 s.  The dict is
+        copied, never changed.
+
+        ``search_prns``: restrict the cold search to this PRN subset
+        (typically ``nav.almanac.visible_prns`` from a checkpoint's
+        almanac and last fix).  Only a non-empty proper subset of
+        ``cfg.prns`` directs the sweep; the receiver falls back to the
+        full sweep if the directed set under-delivers.
 
         ``on_solution``: live-mode fix sink.  When given, NAV decode and
         PVT run in-stream at the solve cadence (the reference's 4 s
@@ -418,6 +460,14 @@ class Receiver:
         it is computed; fixes of the end-of-stream pass follow.
         """
         cfg = self.cfg
+        self._searcher_directed = None
+        if search_prns is not None:
+            subset = tuple(sorted(set(int(x) for x in search_prns)
+                                  & set(cfg.prns)))
+            if subset and subset != tuple(cfg.prns):
+                self._searcher_directed = FoldedSearcher(
+                    dataclasses.replace(cfg, prns=subset),
+                    n_coherent=self._n_coherent, device=self.device)
         p = round(cfg.fs * 1e-3)
         eps = self.epochs_per_step
         if round(chunk_s * 1000) % eps:
@@ -493,16 +543,15 @@ class Receiver:
                 chunk_len=chunk_len, use_packed=use_packed,
                 use_bits=use_bits, use_rawiq=use_rawiq,
                 max_duration_s=max_duration_s, max_channels=max_channels,
-                on_solution=on_solution)
+                warm_ephemerides=warm_ephemerides, on_solution=on_solution)
         finally:
             prefetcher.stop()
 
     def _stream_loop(self, blocks, source, n_samples, p, eps, *, chunk_len,
                      use_packed, use_bits, use_rawiq, max_duration_s,
-                     max_channels, on_solution):
+                     max_channels, warm_ephemerides, on_solution):
         """Streaming body of :meth:`process_source` (the reference's
-        tpu_gnss/receiver.py:765-1134 without mesh and warm-start
-        modes)."""
+        tpu_gnss/receiver.py:765-1134 without the mesh mode)."""
         cfg = self.cfg
         with METRICS.stage("receiver.read"):
             first_item = next(blocks, None)
@@ -562,6 +611,12 @@ class Receiver:
                 rec = ChannelRecord(ch=ch, prn=d["prn"],
                                     start_epoch=epoch_now,
                                     code_phase0=code_phase)
+                if warm_ephemerides and d["prn"] in warm_ephemerides:
+                    # deep copy: NAV decode mutates the Ephemeris in place;
+                    # the caller's dict must survive a partial new-IOD
+                    # ingest, and a lost and re-acquired PRN must not
+                    # alias one object
+                    rec.eph = copy.deepcopy(warm_ephemerides[d["prn"]])
                 live[ch] = rec
                 recs.append(rec)
                 tracked.add(d["prn"])

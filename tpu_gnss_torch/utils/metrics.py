@@ -1,8 +1,11 @@
-"""Stage timers for the port's receiver.
+"""Stage timers and the receiver's text dashboard.
 
-Copied from tpu_gnss/utils/metrics.py (``Metrics`` / ``METRICS``, and
-``solution_line`` and ``save_iq_log`` from lines 110-120 and 200-222);
-that package's ``__init__`` imports jax.  Stage times are host wall clock:
+Copied from tpu_gnss/utils/metrics.py:21-64 (``Metrics`` / ``METRICS``,
+with a lock added: the port's prefetch, fetch and re-acquisition threads
+feed it) and 91-222 (``channel_bars``, ``solution_line``, ``latlon_dms``,
+``gps_day_time``, ``iq_scatter_ascii``, ``save_iq_log``); that package's
+``__init__`` imports jax.  ``device_trace`` (:67-84, a ``jax.profiler``
+wrapper no caller uses) is not copied.  Stage times are host wall clock:
 a stage that enqueues device work without waiting measures the enqueue.
 """
 
@@ -37,20 +40,57 @@ class Metrics:
                 if samples is not None:
                     self.counters[f"{name}.samples"] += samples
 
+    def add(self, name: str, value: float = 1.0) -> None:
+        with self._lock:
+            self.counters[name] += value
+
+    def throughput(self, name: str) -> Optional[float]:
+        """Samples/s for a stage fed with ``samples=``."""
+        total_t = sum(self.timings.get(name, []))
+        total_s = self.counters.get(f"{name}.samples", 0.0)
+        return (total_s / total_t) if total_t > 0 else None
+
     def report(self) -> str:
         lines = []
         with self._lock:
             for name in sorted(self.timings):
                 ts = self.timings[name]
-                lines.append(f"{name:24s} n={len(ts):4d} "
-                             f"total={sum(ts):8.3f}s "
-                             f"mean={np.mean(ts) * 1e3:8.2f}ms")
+                line = (f"{name:24s} n={len(ts):4d} total={sum(ts):8.3f}s "
+                        f"mean={np.mean(ts)*1e3:8.2f}ms")
+                tp = self.throughput(name)
+                if tp:
+                    line += f"  {tp/1e6:9.2f} Msamp/s"
+                lines.append(line)
             for name, v in sorted(self.counters.items()):
-                lines.append(f"{name:24s} = {v:g}")
+                if not name.endswith(".samples"):
+                    lines.append(f"{name:24s} = {v:g}")
         return "\n".join(lines)
 
 
 METRICS = Metrics()
+
+
+# ---------------------------------------------------------------------------
+# Channel dashboard (LCD bar-graph analog, reference: c/user.cpp:117-201)
+# ---------------------------------------------------------------------------
+
+def channel_bars(prns, powers, width: int = 40,
+                 lo_freqs=None, statuses=None) -> str:
+    """Render per-channel signal-strength bars as terminal text."""
+    powers = np.asarray(powers, np.float64)
+    rssi = np.sqrt(np.maximum(powers, 0.0))
+    top = rssi.max() if rssi.size and rssi.max() > 0 else 1.0
+    lines = []
+    for i, prn in enumerate(prns):
+        n = int(round(width * rssi[i] / top))
+        bar = "#" * n + "." * (width - n)
+        line = f"PRN {prn:2d} |{bar}| rssi {rssi[i]:8.0f}"
+        if lo_freqs is not None:
+            line += f"  dopp {lo_freqs[i]:+7.1f} Hz"
+        if statuses is not None:
+            line += f"  [{statuses[i]}]"
+        lines.append(line)
+    return "\n".join(lines)
 
 
 def solution_line(sol) -> str:
@@ -64,6 +104,81 @@ def solution_line(sol) -> str:
         line += (f"  {vel.speed_mps * 3.6:6.2f} km/h"
                  f" @{vel.course_deg:5.1f}T {vel.vu:+5.2f} m/s up")
     return line
+
+
+def latlon_dms(lat_deg: float, lon_deg: float) -> str:
+    """Degrees/minutes/seconds position page (reference LCD page 3,
+    c/user.cpp:160-176)."""
+    def dms(v, pos, neg):
+        h = pos if v >= 0 else neg
+        # split from rounded centi-arcseconds so display never shows 60.00"
+        cs = round(abs(v) * 360000.0)
+        d, cs = divmod(cs, 360000)
+        m, cs = divmod(cs, 6000)
+        return f"{d}°{m:02d}'{cs / 100.0:05.2f}\"{h}"
+    return f"{dms(lat_deg, 'N', 'S')} {dms(lon_deg, 'E', 'W')}"
+
+
+def gps_day_time(week: int, tow_s: float) -> str:
+    """GPS day-of-week + UTC-style time page (reference LCD page 4,
+    c/user.cpp:178-201).
+
+    ``tow_s`` is the time of week in seconds; leap seconds are not
+    applied (the reference displays GPS time as well).
+    """
+    days = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+            "Friday", "Saturday")
+    # split from rounded milliseconds so display never shows :60.000
+    ms = round(float(tow_s) * 1000.0) % (7 * 86400 * 1000)
+    day, ms = divmod(ms, 86400 * 1000)
+    h, ms = divmod(ms, 3600 * 1000)
+    m, ms = divmod(ms, 60 * 1000)
+    return (f"week {week} {days[day]} {h:02d}:{m:02d}:"
+            f"{ms / 1000.0:06.3f} GPS")
+
+
+def iq_scatter_ascii(ip, qp, size: int = 21, half_width: float = 0.0) -> str:
+    """ASCII I/Q constellation scatter of prompt correlator outputs.
+
+    The software analog of the reference FPGA's "RSSI and IQ logging
+    (e.g. for scatter plots)" affordance: a locked Costas loop shows two
+    tight clusters on the I axis (the NAV bit constellation); a circle
+    means carrier phase is not locked.
+
+    Args:
+      ip/qp: per-epoch prompt I and Q arrays.
+      size: square grid size in characters (odd keeps axes centered).
+      half_width: plot half-range; 0 -> auto (1.2x the 95th percentile).
+    """
+    ip = np.asarray(ip, dtype=np.float64)
+    qp = np.asarray(qp, dtype=np.float64)
+    if ip.size == 0:
+        return "(no I/Q history)"
+    if half_width <= 0:
+        mag = np.abs(np.concatenate([ip, qp]))
+        half_width = 1.2 * (np.percentile(mag, 95) or 1.0)
+    grid = np.zeros((size, size), dtype=np.int64)
+    col = np.clip(((ip / half_width) + 1.0) * 0.5 * (size - 1), 0,
+                  size - 1).astype(int)
+    row = np.clip(((-qp / half_width) + 1.0) * 0.5 * (size - 1), 0,
+                  size - 1).astype(int)
+    np.add.at(grid, (row, col), 1)
+    shades = " .:+*#@"
+    top = grid.max() or 1
+    lines = []
+    mid = size // 2
+    for r in range(size):
+        chars = []
+        for c in range(size):
+            n = grid[r, c]
+            if n == 0:
+                chars.append("|" if c == mid else
+                             ("-" if r == mid else " "))
+            else:
+                chars.append(shades[min(len(shades) - 1,
+                                        1 + int(n / top * (len(shades) - 2)))])
+        lines.append("".join(chars))
+    return "\n".join(lines)
 
 
 def save_iq_log(path: str, channels) -> None:
