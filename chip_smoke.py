@@ -90,9 +90,28 @@ prints no result line):
    s (detections inside the subset, a fix within 150 m, every receiver
    kernel launched); seconds of signal to the first fix cold against warm,
    and the cold search's device time for 5 PRNs against 32.
+15. The mesh on the card: ``acquire_refined_sharded`` at the e2e (41
+   rows) and hackrf (801 rows, 32 PRNs) shapes on meshes of 1, 2 and 4
+   logical shards of ``cuda:0`` against ``acquire_refined_mxu`` (the same
+   ``[3, n_sv]`` stack; each shard's Doppler rows launched alone against
+   the full-grid launch, bit for bit, or within phase 2's near-tie rule;
+   the device time of each); ``make_tracker_sharded`` at 2.048 and 10 Msps,
+   12 channels on 2 and 4 shards, against ``track_epochs`` within
+   ``TRACK_ATOL`` x max|P|; the receiver on a 2-shard mesh over phase 3's
+   capture (phase 3's fix gate and fix epochs) and on a 4-shard mesh over
+   phase 9's hackrf int8 scene (phase 9's gates and PRNs); the CUDA
+   kernels and copies per 10 ms step with no mesh and 1, 2, 4 shards; the
+   CLI with ``--mesh-devices 1``; the multi-process worker (``python -m
+   tpu_gnss_torch.dist.multihost --flagship``) as 2 gloo processes sharing
+   the card and 1 nccl process, 4 blocks each, against the single-process
+   engines: the exact searcher, the bank, and ``fold_corr_reduce`` through
+   ``acquire_folded_multihost`` with the blocks across the processes and
+   with the Doppler grid across them (launched in every process).  With
+   two cards, the same on ``make_mesh(2, device="cuda")`` and 2 nccl
+   processes; with one, a line says so.
 
 Phase 2 also holds ``fold_corr_reduce`` at the e2e shape with 5 and 11 SVs
-(the directed search's SV counts).  Phases 8-14 run before 6-7, inside
+(the directed search's SV counts).  Phases 8-15 run before 6-7, inside
 phase 3's temporary directory.  Every
 receiver run prints its wall, realtime factor, ``receiver.transfer``
 seconds and launch counts.
@@ -850,21 +869,11 @@ def locked_prns(res, min_epochs=2000):
                   and pll_lock_metric(r.ip_hist, r.qp_hist, 1000) > 0.45)
 
 
-def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
-    """Phases 9-10: a ``duration`` s, 6-SV scene at a capture preset's
-    width (all 32 PRNs, +-100 kHz), written as 8-bit I/Q with a common
-    ``offset_hz``, through ``IQFileSource`` once per link.  Every link
-    must detect >= 4 SVs, the same PRNs as the first, with those channels
-    locked; the receiver's oscillator-offset estimate must sit within
-    250 Hz of ``offset_hz`` plus the detected SVs' true median Doppler;
-    int4 and int2 must meet the reference's bars against int8
-    (tests/test_stream.py:494-537): the whole prompt history, no sign
-    allowance, and for int2 the NAV-bit signs after the 200-epoch pull-in.
-    The JAX receiver keeps one Costas phase on every link of this scene,
-    as the port does (tests/test_torch_link_flip.py)."""
+def iq_scene(preset, duration, offset_hz, signed, tmpdir):
+    """A ``duration`` s, 6-SV scene at a capture preset's width written as
+    8-bit I/Q with a common ``offset_hz``: ``(cfg, path, fmt, true sky
+    Dopplers)``."""
     from tpu_gnss_torch import PRESETS
-    from tpu_gnss_torch.io.stream import IQFileSource
-    from tpu_gnss_torch.receiver import Receiver
     from tpu_gnss_torch.signal import scene
     cfg = PRESETS[preset]
     t0 = time.perf_counter()
@@ -878,34 +887,59 @@ def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
         f"{cfg.fs / 1e6:g} Msps, {offset_hz:+g} Hz common offset, built in "
         f"{time.perf_counter() - t0:.1f} s; true sky Dopplers "
         f"{np.round(true, 1).tolist()} Hz")
+    return cfg, path, fmt, true
+
+
+def iq_link_run(label, cfg, path, fmt, true, offset_hz, duration, link, dev,
+                mesh=None):
+    """One run of an I/Q scene over one link (on ``mesh`` if given): >= 4
+    detections, those channels locked, the oscillator-offset estimate
+    within 250 Hz of ``offset_hz`` plus the detected SVs' true median
+    Doppler."""
+    from tpu_gnss_torch.io.stream import IQFileSource
+    from tpu_gnss_torch.receiver import Receiver
+    recv = Receiver(cfg, transfer_dtype=link, mesh=mesh, device=dev)
+    with counting_uploads() as sent:
+        res, wall, launches, xfer_s = drive(
+            label, recv, IQFileSource(path, cfg.fs, fmt), duration)
+    det = sorted(d["prn"] for d in res.detections)
+    locked = locked_prns(res)
+    want_off = offset_hz + float(np.median(
+        [true[p - 2] for p in det if 2 <= p < 2 + len(true)]))
+    log(f"{label}: {len(det)} detections {det}, locked {locked}, if_offset "
+        f"estimate {recv._if_offset:.1f} Hz (want {want_off:.1f}), "
+        f"{sum(sent) / duration / 1e6:.3f} MB uploaded per second of signal")
+    need_launched(label, launches, ("fold_corr_reduce", "track_corr"))
+    if len(det) < 4 or not set(det) <= set(locked):
+        fail(f"{label}: fewer than 4 detections, or detected channels not "
+             "locked")
+    if not abs(recv._if_offset - want_off) < 250.0:
+        fail(f"{label}: if_offset estimate {recv._if_offset} Hz, want "
+             f"{want_off} +- 250 Hz")
+    return dict(det=det, res=res, wall=wall, launches=launches,
+                transfer_s=xfer_s, bytes_per_s=sum(sent) / duration)
+
+
+def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
+    """Phases 9-10: a ``duration`` s, 6-SV scene at a capture preset's
+    width (all 32 PRNs, +-100 kHz), written as 8-bit I/Q with a common
+    ``offset_hz``, through ``IQFileSource`` once per link
+    (:func:`iq_link_run`'s gates), every link detecting the same PRNs as
+    the first; int4 and int2 must meet the reference's bars against int8
+    (tests/test_stream.py:494-537): the whole prompt history, no sign
+    allowance, and for int2 the NAV-bit signs after the 200-epoch pull-in.
+    The JAX receiver keeps one Costas phase on every link of this scene,
+    as the port does (tests/test_torch_link_flip.py).  Returns the runs
+    and the scene."""
+    cfg, path, fmt, true = iq_scene(preset, duration, offset_hz, signed,
+                                    tmpdir)
     runs = {}
     for link in links:
-        recv = Receiver(cfg, transfer_dtype=link, device=dev)
-        with counting_uploads() as sent:
-            res, wall, launches, xfer_s = drive(
-                f"{preset} {link}", recv, IQFileSource(path, cfg.fs, fmt),
-                duration)
-        det = sorted(d["prn"] for d in res.detections)
-        locked = locked_prns(res)
-        want_off = offset_hz + float(np.median(
-            [true[p - 2] for p in det if 2 <= p < 2 + len(true)]))
-        log(f"{preset} {link}: {len(det)} detections {det}, locked "
-            f"{locked}, if_offset estimate {recv._if_offset:.1f} Hz "
-            f"(want {want_off:.1f}), {sum(sent) / duration / 1e6:.3f} MB "
-            f"uploaded per second of signal")
-        need_launched(f"{preset} {link}", launches,
-                      ("fold_corr_reduce", "track_corr"))
-        if len(det) < 4 or not set(det) <= set(locked):
-            fail(f"{preset} {link}: fewer than 4 detections, or detected "
-                 "channels not locked")
-        if runs and det != next(iter(runs.values()))["det"]:
-            fail(f"{preset} {link}: PRNs {det} differ from the first link's")
-        if not abs(recv._if_offset - want_off) < 250.0:
-            fail(f"{preset} {link}: if_offset estimate {recv._if_offset} Hz, "
-                 f"want {want_off} +- 250 Hz")
-        runs[link] = dict(det=det, res=res, wall=wall, launches=launches,
-                          transfer_s=xfer_s,
-                          bytes_per_s=sum(sent) / duration)
+        runs[link] = iq_link_run(f"{preset} {link}", cfg, path, fmt, true,
+                                 offset_hz, duration, link, dev)
+        if runs[link]["det"] != runs[links[0]]["det"]:
+            fail(f"{preset} {link}: PRNs {runs[link]['det']} differ from the "
+                 "first link's")
     base = runs[links[0]]["res"]
     for link, bar in (("int4", 0.05), ("int2", 0.25)):
         if link not in runs:
@@ -925,7 +959,7 @@ def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
             if not rel < bar or (link == "int2" and not sign > 0.98):
                 fail(f"{preset} {link} PRN {a.prn}: prompt rel {rel}, sign "
                      f"agreement {sign}")
-    return runs
+    return runs, (cfg, path, fmt, true)
 
 
 def live_run(cfg, path, rx, duration, tmpdir, dev):
@@ -1333,6 +1367,394 @@ def warm_start_phase(cfg, path, rx, tmpdir, dev):
                 ttff_warm=ttff_warm, search_ms=times)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh on the card
+# ---------------------------------------------------------------------------
+
+def one_card_mesh(dev, n):
+    """``n`` logical shards of one card on the "dop" axis."""
+    from tpu_gnss_torch.dist.shard import Mesh
+    return Mesh([dev] * n, ("dop",))
+
+
+def check_refined_sharded(cfg, label, dev, meshes):
+    """``acquire_refined_sharded`` on each mesh of ``meshes`` against
+    ``acquire_refined_mxu`` on one 4 ms block of a 6-SV complex scene:
+    the same ``[3, n_sv]`` stack.  First the per-row check: each shard's
+    Doppler slice launched alone against the same rows of the full-grid
+    launch, bit for bit; rows that differ are held to phase 2's near-tie
+    rule, and so are SVs whose best Doppler then differs.  Then the
+    device time of each search.  Returns ``{mesh label: device ms}``."""
+    from tpu_gnss_torch.acquire import folded as F
+    from tpu_gnss_torch.dist.shard import acquire_refined_sharded, pad_dops
+    from tpu_gnss_torch.signal import synth
+    s = F.FoldedSearcher(cfg, device=dev)
+    iq = synth.synth_baseband(
+        [synth.SvSignal(prn=p, doppler_hz=d, code_phase_chips=c, amplitude=a)
+         for p, d, c, a in SEARCH_SVS], cfg.fs, s.block_len, noise_std=1.0,
+        seed=15)
+    x = torch.from_numpy(iq).to(dev)
+    cw_r, cw_i = s.mxu_code_planes()
+    kw = dict(fs=cfg.fs, lo_rate=cfg.lo_rate, n_coherent=s.n_coherent,
+              period=s.period, nf=s.nf, from_bits=False)
+    single = lambda: F.acquire_refined_mxu(x, cw_r, cw_i, s.code_ffts_p,
+                                           s.dops_hz, **kw)
+    want = single().cpu()
+    grid = lambda dops: F._corr_reduce_grid_mxu(
+        x[None], cw_r, cw_i, dops, fs=cfg.fs, n_coherent=s.n_coherent,
+        period=s.period, nf=s.nf, accumulate=True)
+    times = {"single": device_busy_ms(single)}
+    for name, mesh in meshes.items():
+        n = mesh.shape["dop"]
+        dops = torch.from_numpy(pad_dops(s.dops_hz.cpu().numpy(), n, 1)
+                                ).to(dev)
+        full = [t.cpu() for t in grid(dops)]                # [sv, n_pad]
+        per = dops.shape[0] // n
+        same, tie = 0, 0
+        for k in range(n):
+            part = [t.cpu() for t in grid(dops[k * per:(k + 1) * per])]
+            for r in range(per):
+                c = k * per + r
+                if all(torch.equal(p[:, r], f[:, c]) for p, f in
+                       zip(part, full)):
+                    same += 1
+                    continue
+                pk, fk = part[0][:, r], full[0][:, c]
+                if not bool(((pk - fk).abs() <= 2e-3 * fk).all()):
+                    fail(f"sharded search {label} {name}: row {c} launched "
+                         "alone differs beyond the near-tie rule")
+                tie += 1
+        got = acquire_refined_sharded(x, cw_r, cw_i, s.code_ffts_p, dops,
+                                      mesh=mesh, **kw).cpu()
+        eq = torch.equal(got, want)
+        if not eq:
+            # an SV may settle on another bin only at a near-tie
+            snr_f = (full[0] / (full[2] / s.period))[:, :len(s.dops_hz)]
+            for sv in range(got.shape[1]):
+                if torch.equal(got[:, sv], want[:, sv]):
+                    continue
+                a, b = snr_f[sv].max(), snr_f[sv].sort().values[-2]
+                if not float(a - b) <= 2e-3 * float(a):
+                    fail(f"sharded search {label} {name}: SV {sv} "
+                         f"{got[:, sv].tolist()} against the single-device "
+                         f"{want[:, sv].tolist()}, not a near-tie")
+        times[name] = device_busy_ms(lambda: acquire_refined_sharded(
+            x, cw_r, cw_i, s.code_ffts_p, dops, mesh=mesh, **kw))
+        fmt = lambda t: "not measured" if t is None else f"{t:.3f} ms"
+        log(f"sharded search {label} {name}: {len(s.dops_hz)} rows padded to "
+            f"{dops.shape[0]}; rows launched alone {same} of "
+            f"{dops.shape[0]} bit-identical to the full-grid launch"
+            + (f", {tie} within the near-tie rule" if tie else "")
+            + f"; stack {'equal to' if eq else 'near-ties apart from'} "
+            f"acquire_refined_mxu's; device time {fmt(times[name])} against "
+            f"{fmt(times['single'])} single")
+    return times
+
+
+def tracking_bank(fs, dev, eps):
+    """12 SVs of a synthesized scene at ``fs`` for 10 steps of ``eps``
+    epochs, and a ChannelState seeded on them (code spectra of the
+    FFT-dot correlator): ``(samples, state, code_ffts)``."""
+    from tpu_gnss_torch.signal import synth
+    from tpu_gnss_torch.track import channel as tc
+    n_chan, steps = 12, 10
+    rng = np.random.default_rng(int(fs) % 997)
+    prns = list(range(1, n_chan + 1))
+    dops = rng.uniform(-4000, 4000, n_chan)
+    chips = rng.uniform(0, 1023, n_chan)
+    p = round(fs * 1e-3)
+    iq = synth.synth_baseband(
+        [synth.SvSignal(prn=q, doppler_hz=d, code_phase_chips=c)
+         for q, d, c in zip(prns, dops, chips)], fs, steps * eps * p,
+        noise_std=0.5, seed=int(fs) % 991)
+    state = tc.start_channels(tc.init_state(n_chan, dev), range(n_chan),
+                              dops + rng.uniform(-20, 20, n_chan), chips,
+                              dops)
+    spec = torch.from_numpy(tc.code_spectra_np(prns, n_chan, fs)).to(dev)
+    return torch.from_numpy(iq).to(dev), state, spec
+
+
+def check_tracker_sharded(fs, label, dev, meshes, eps=10):
+    """``make_tracker_sharded`` on each mesh against ``track_epochs``: the
+    prompt, early and late outputs within TRACK_ATOL x max|P|, and the
+    ``track_corr`` launches per step."""
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.dist.shard import make_tracker_sharded
+    from tpu_gnss_torch.track import channel as tc
+    x, state, spec = tracking_bank(fs, dev, eps)
+    gains = dict(fs=fs, pll_gains=tc.second_order_gains(18.0, t_s=eps * 1e-3),
+                 dll_gains=tc.second_order_gains(2.0, t_s=eps * 1e-3),
+                 epochs_per_step=eps)
+    _, want = tc.track_epochs(x, state, None, code_ffts=spec, **gains)
+    steps = x.shape[0] // (round(fs * 1e-3) * eps)
+    ref = float(torch.hypot(want.ip, want.qp).max())
+    out = {}
+    for name, mesh in meshes.items():
+        run = make_tracker_sharded(mesh=mesh, axis="dop", **gains)
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.reset()
+        _, got = run(x, state, None, spec)
+        torch.cuda.synchronize()
+        n = kernels.LAUNCHES.get("track_corr")
+        err = max(float((g - w).abs().max()) for g, w in
+                  zip((got.ip, got.qp, got.e_mag, got.l_mag),
+                      (want.ip, want.qp, want.e_mag, want.l_mag)))
+        log(f"sharded tracker {label} {name}: {state.active.shape[0]} "
+            f"channels, {steps} steps of {eps} epochs, max err {err:.3e} = "
+            f"{err / ref:.2e} x max|P|={ref:.1f} (atol {TRACK_ATOL} x "
+            f"max|P|), track_corr {n / steps:g} launches per step")
+        if not err <= TRACK_ATOL * ref or n != steps * mesh.shape["dop"]:
+            fail(f"sharded tracker {label} {name}: max err {err}, "
+                 f"{n} track_corr launches")
+        out[name] = dict(max_abs_err=err, launches_per_step=n / steps)
+    return out
+
+
+def profiled_launches(fn):
+    """``(fn(), the CUDA kernels and copies it ran)``, counted by
+    ``torch.profiler`` (None when it records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return out, (n or None)
+
+
+def mesh_receiver_runs(cfg_e2e, path_e2e, rx, res_e2e, scene9, runs9, dev):
+    """The receiver on one-card meshes at full width: phase 3's 20 s e2e
+    1-bit capture on 2 shards (phase 3's fix gate and fix epochs), phase
+    9's hackrf int8 scene on 4 shards (phase 9's gates and PRNs), each
+    with its wall, realtime factor, launch counts and all CUDA launches
+    per 10 ms step (profiled run after the timed one)."""
+    from tpu_gnss_torch.io.stream import FileSource1Bit
+    from tpu_gnss_torch.receiver import Receiver
+    out = {}
+    mesh2 = one_card_mesh(dev, 2)
+    res, wall, launches, _ = drive(
+        "e2e 1-bit 20 s, mesh of 2 shards",
+        Receiver(cfg_e2e, mesh=mesh2, device=dev),
+        FileSource1Bit(path_e2e, cfg_e2e), 20.0)
+    decoded = [r for r in res.channels if r.eph.valid()]
+    err = fix_error(res, rx)
+    epochs = [s.snap_epoch for s in res.solutions]
+    want = [s.snap_epoch for s in res_e2e.solutions]
+    log(f"e2e mesh 2: {len(res.detections)} detections, {len(decoded)} "
+        f"ephemerides, fixes at epochs {epochs} (phase 3: {want}), final "
+        f"error {err:.2f} m")
+    need_launched("e2e mesh 2", launches, RECEIVER_KERNELS)
+    if len(res.detections) < 4 or len(decoded) < 4 or not err < 60.0 \
+            or epochs != want:
+        fail("e2e mesh 2: fewer than 4 detections or ephemerides, fix "
+             "error over 60 m, or fix epochs differ from phase 3's")
+    out["e2e 1-bit 20 s, mesh of 2 shards of one card"] = dict(
+        wall=wall, launches=launches)
+    cfg9, path9, fmt9, true9 = scene9
+    r9 = iq_link_run("hackrf int8 4 s, mesh of 4 shards", cfg9, path9, fmt9,
+                     true9, 25e3, 4.0, "int8", dev,
+                     mesh=one_card_mesh(dev, 4))
+    if r9["det"] != runs9["int8"]["det"]:
+        fail(f"hackrf mesh 4: PRNs {r9['det']}, phase 9 "
+             f"{runs9['int8']['det']}")
+    out["hackrf int8 4 s, mesh of 4 shards of one card"] = r9
+    # all CUDA launches per 10 ms step, no mesh against 1, 2 and 4 shards,
+    # on the first 4 s of the e2e capture
+    per_step = {}
+    for n in (0, 1, 2, 4):
+        recv = Receiver(cfg_e2e, mesh=one_card_mesh(dev, n) if n else None,
+                        device=dev)
+        _, k = profiled_launches(lambda: recv.process_source(
+            FileSource1Bit(path_e2e, cfg_e2e), max_duration_s=4.0))
+        per_step[n] = None if k is None else k / 400.0
+    log("CUDA kernels and copies per 10 ms step, e2e 4 s (torch.profiler; "
+        "acquisition included): "
+        + ", ".join(f"{'no mesh' if n == 0 else f'{n} shards'} "
+                    f"{'not measured' if v is None else f'{v:.1f}'}"
+                    for n, v in per_step.items()))
+    return out, per_step
+
+
+def multihost_worker_runs(dev, tmpdir):
+    """``python -m tpu_gnss_torch.dist.multihost --flagship --device
+    cuda`` as 2 gloo processes sharing the card (2 shards each, 2 blocks
+    each) and as 1 NCCL process (2 shards, 4 blocks): the backend each
+    picks, and 4 blocks in all in both.  Every process writes the same
+    results, equal to the single-process engines on the card: the
+    exact-semantics searcher (SNR rtol 1e-5, equal bins and lags), the
+    folded kernel engine ``acquire_folded_batch_mxu`` in both of the
+    worker's layouts, blocks across the processes and the Doppler grid
+    across them (SNR rtol 1e-4, equal bins and lags; under gloo the
+    second one gathers CUDA results through the host), and the
+    gather-correlator bank (prompt I rtol 1e-4 / atol 1e-2 x the period).
+    Every process must launch ``fold_corr_reduce``.  With 2 cards, also 2
+    NCCL processes, one per card.  Returns ``{run: summed launches}``."""
+    import socket
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.acquire import folded as F
+    from tpu_gnss_torch.acquire.search import Searcher
+    from tpu_gnss_torch.dist import multihost as mh
+    from tpu_gnss_torch.track import channel as tc
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg, dop_chunk, n_epochs = mh.worker_config(flagship=True)
+    n_blk = 4
+    runs = [(f"gloo, 2 processes x 2 shards of {dev}", 2, "gloo")]
+    if dev.type == "cuda":
+        runs.append((f"nccl, 1 process x 2 shards of {dev}", 1, "nccl"))
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl, 2 processes on 2 cards x 2 shards", 2, "nccl"))
+    searcher = Searcher(cfg, dop_chunk=dop_chunk, device=dev)
+    fsr = F.FoldedSearcher(cfg, device=dev)
+    fblocks = torch.from_numpy(mh.worker_folded_blocks(
+        cfg, n_blk, fsr.block_len)).to(dev)
+    fold_one = F.acquire_folded_batch_mxu(
+        fblocks, *fsr.mxu_code_planes(), fsr.dops_hz, fs=cfg.fs,
+        lo_rate=cfg.lo_rate, n_coherent=fsr.n_coherent, from_bits=True,
+        period=fsr.period, nf=fsr.nf)
+    fold_one = [t.cpu().numpy() for t in fold_one]
+    gains = (tc.second_order_gains(18.0), tc.second_order_gains(2.0))
+    p_len = round(cfg.fs * 1e-3)
+    launches_by_run = {}
+    for label, n_proc, backend in runs:
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+        sock.close()
+        outs = [os.path.join(tmpdir, f"mh_{backend}_{n_proc}_{k}.npz")
+                for k in range(n_proc)]
+        env = dict(os.environ, PYTHONPATH=here)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "tpu_gnss_torch.dist.multihost",
+             "--coordinator", coord, "--num-processes", str(n_proc),
+             "--process-id", str(k), "--shards", "2",
+             "--blocks-per-dev", str(n_blk // n_proc), "--bench-repeats",
+             "3", "--flagship", "--device", dev.type, "--out", outs[k]],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for k in range(n_proc)]
+        logs = []
+        try:
+            for q in procs:
+                logs.append(q.communicate(timeout=300)[0])
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+        wall = time.perf_counter() - t0
+        if any(q.returncode for q in procs):
+            fail(f"multihost {label}: a worker failed:\n"
+                 + "\n".join(x[-2000:] for x in logs))
+        res = [dict(np.load(o)) for o in outs]
+        picked = {str(r["backend"]) for r in res}
+        if picked != {backend}:
+            fail(f"multihost {label}: the workers picked {picked}")
+        for k in ("snr", "lo_shift", "ca_shift", "track_ip", "fsnr", "fdop",
+                  "fca", "xsnr", "xdop", "xca"):
+            for r in res[1:]:
+                if not np.array_equal(res[0][k], r[k]):
+                    fail(f"multihost {label}: processes disagree on {k}")
+        bits = mh.worker_blocks(cfg, n_blk)
+        for b in range(len(bits)):
+            one = searcher.acquire_bits(bits[b])
+            np.testing.assert_allclose(res[0]["snr"][b], one.snr.cpu().numpy(),
+                                       rtol=1e-5)
+            if not (np.array_equal(res[0]["lo_shift"][b],
+                                   one.lo_shift.cpu().numpy())
+                    and np.array_equal(res[0]["ca_shift"][b],
+                                       one.ca_shift.cpu().numpy())):
+                fail(f"multihost {label}: block {b} bins or lags differ")
+        exact = []
+        for lay in "fx":
+            got = [res[0][lay + k] for k in ("snr", "dop", "ca")]
+            np.testing.assert_allclose(got[0], fold_one[0], rtol=1e-4)
+            if not (np.array_equal(got[1], fold_one[1])
+                    and np.array_equal(got[2], fold_one[2])):
+                fail(f"multihost {label}: folded layout {lay} bins or lags "
+                     "differ from acquire_folded_batch_mxu")
+            exact.append(np.array_equal(got[0], fold_one[0]))
+        if not (fold_one[0][:, 8] > 25).all():
+            fail(f"multihost {label}: PRN 9 not found by the folded search")
+        n_fold = [int(r["launches_fold_corr_reduce"]) for r in res]
+        if min(n_fold) <= 0:
+            fail(f"multihost {label}: fold_corr_reduce launches {n_fold}")
+        launches_by_run[f"multihost {label}"] = {
+            k: sum(int(r[f"launches_{k}"]) for r in res)
+            for k in kernels.KERNELS}
+        n_chan = mh.worker_channels(2 * n_proc, flagship=True)
+        iq, state, tables = mh.worker_bank(cfg, n_chan, n_epochs)
+        _, want = tc.track_epochs(
+            torch.from_numpy(iq.astype(np.complex64)).to(dev),
+            tc.ChannelState(*(t.to(dev) for t in state)),
+            torch.from_numpy(tables).to(dev), fs=cfg.fs,
+            pll_gains=gains[0], dll_gains=gains[1])
+        np.testing.assert_allclose(res[0]["track_ip"], want.ip.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-2 * p_len)
+        ms, fms = 1e3 * float(res[0]["wall"]), 1e3 * float(res[0]["fold_wall"])
+        log(f"multihost {label}: {n_blk} blocks of {cfg.fft_len} samples x "
+            f"32 PRNs x {cfg.num_dop_bins} bins, {n_blk} folded blocks of "
+            f"{fsr.block_len} x {len(fsr.dops_hz)} rows (blocks across the "
+            f"processes, and the Doppler grid across them; SNR "
+            f"{'bit-identical' if all(exact) else 'within 1e-4'}) and a "
+            f"{n_chan}-channel bank of {n_epochs} epochs equal to the "
+            f"single-process engines; backend {backend}; sharded "
+            f"acquisition {ms:.1f} ms a call ({ms / n_blk:.2f} ms a block), "
+            f"sharded folded search {fms:.1f} ms a call ({fms / n_blk:.2f} "
+            f"ms a block); fold_corr_reduce launches per process {n_fold}; "
+            f"{wall:.1f} s for the whole run (process start included)")
+    if torch.cuda.device_count() < 2:
+        log(f"multihost and mesh runs on real cards need 2 cards; this "
+            f"machine has {torch.cuda.device_count()}")
+    return launches_by_run
+
+
+def mesh_phase(cfg_e2e, path_e2e, rx, res_e2e, scene9, runs9, dev, tmpdir):
+    """Phase 15: the sharded search and tracker against their
+    single-device versions, the receiver on one-card meshes, the CLI with
+    ``--mesh-devices 1``, and the multi-process worker."""
+    from tpu_gnss_torch import PRESETS
+    from tpu_gnss_torch.dist.shard import make_mesh
+    meshes = {f"{n} shards": one_card_mesh(dev, n) for n in (1, 2, 4)}
+    cards = torch.cuda.device_count() >= 2
+    if cards:
+        meshes["2 cards"] = make_mesh(2, device="cuda")
+    search_ms = {"e2e": check_refined_sharded(cfg_e2e, "e2e", dev, meshes),
+                 "hackrf": check_refined_sharded(PRESETS["hackrf"], "hackrf",
+                                                 dev, meshes)}
+    track = {lbl: check_tracker_sharded(fs, lbl, dev, {
+        k: m for k, m in meshes.items() if k != "1 shards"})
+        for lbl, fs in (("e2e", 2.048e6), ("hackrf", 10e6))}
+    runs, per_step = mesh_receiver_runs(cfg_e2e, path_e2e, rx, res_e2e,
+                                        scene9, runs9, dev)
+    if cards:
+        from tpu_gnss_torch.io.stream import FileSource1Bit
+        from tpu_gnss_torch.receiver import Receiver
+        res, _, launches, _ = drive(
+            "e2e 1-bit 20 s, mesh of 2 cards",
+            Receiver(cfg_e2e, mesh=meshes["2 cards"], device=dev),
+            FileSource1Bit(path_e2e, cfg_e2e), 20.0)
+        need_launched("e2e 2 cards", launches, RECEIVER_KERNELS)
+        if not fix_error(res, rx) < 60.0:
+            fail("e2e on 2 cards: no fix within 60 m")
+        runs["e2e 1-bit 20 s, mesh of 2 cards"] = dict(launches=launches)
+    argv = [path_e2e, str(cfg_e2e.fc), str(cfg_e2e.fs), "5000", "--fft-len",
+            str(cfg_e2e.fft_len), "--threshold", str(cfg_e2e.snr_threshold),
+            "--device", "cuda", "--mesh-devices", "1"]
+    out, launches_cli, wall = cli_run(argv)
+    err = cli_fix_error(out, rx)
+    log(f"CLI --mesh-devices 1 on the e2e 20 s capture: wall {wall:.3f} s, "
+        f"realtime factor {20.0 / wall:.2f}, last fix error {err:.2f} m, "
+        f"launches {launches_cli}")
+    need_launched("CLI --mesh-devices 1", launches_cli, RECEIVER_KERNELS)
+    if not err < 60.0:
+        fail(f"CLI --mesh-devices 1: fix error {err} m (limit 60 m)")
+    runs["CLI --mesh-devices 1 e2e 20 s"] = dict(launches=launches_cli)
+    for run, launches in multihost_worker_runs(dev, tmpdir).items():
+        runs[run] = dict(launches=launches)
+    return dict(runs=runs, search_ms=search_ms, track=track,
+                per_step=per_step)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1467,13 +1889,14 @@ def main() -> int:
         by_run["e2e int8 I/Q 20 s"] = launches8
 
         # --- phase 9: full width at the hackrf preset, every link --------
-        runs9 = iq_preset_run("hackrf", 4.0, 25e3, True,
-                              ("int8", "int4", "int2", "float32"), tmp, dev)
+        runs9, scene9 = iq_preset_run("hackrf", 4.0, 25e3, True,
+                                      ("int8", "int4", "int2", "float32"),
+                                      tmp, dev)
         for link, r in runs9.items():
             by_run[f"hackrf {link} 4 s"] = r["launches"]
         # --- phase 10: the rtlsdr preset, uint8 through the int8 link ----
-        runs10 = iq_preset_run("rtlsdr", 4.0, -18e3, False, ("int8",), tmp,
-                               dev)
+        runs10, _ = iq_preset_run("rtlsdr", 4.0, -18e3, False, ("int8",),
+                                  tmp, dev)
         by_run["rtlsdr int8 4 s"] = runs10["int8"]["launches"]
         # --- phase 11: live mode ----------------------------------------
         by_run["live 1-bit follow 20 s"] = live_run(cfg, path_e2e, rx, 20.0,
@@ -1485,6 +1908,10 @@ def main() -> int:
         by_run["CLI --checkpoint e2e 20 s"] = warm["launches_checkpoint"]
         by_run["CLI --warm-start --tow e2e 8 s"] = warm["launches_cli"]
         by_run["warm directed 5 PRNs e2e 8 s"] = warm["launches"]
+        # --- phase 15: the mesh on the card --------------------------------
+        mesh = mesh_phase(cfg, path_e2e, rx, res, scene9, runs9, dev, tmp)
+        for run, r in mesh["runs"].items():
+            by_run[run] = r["launches"]
         # --- phase 13: gps_test on the card -------------------------------
         gps = gps_test_phase(tmp, dev)
         for mode, r in gps.items():

@@ -11,6 +11,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_gnss_torch.cli import run_receiver
 from tpu_gnss_torch.signal import scene
@@ -97,14 +98,27 @@ def test_cli_rtltcp_url_validation(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--mesh-devices=4"])
-def test_cli_rejects_unported_flags(tmp_path, flag, capsys):
-    """The device mesh is not ported: argparse refuses its flag instead of
-    ignoring it."""
-    with pytest.raises(SystemExit) as e:
-        run_receiver.main([str(tmp_path / "cap.bin"), "--device", "cpu",
-                           flag])
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_cli_rejects_unported_flags(tmp_path, flag, capsys, baseband):
+    """``--mesh-devices`` runs the receiver on a mesh: 2 and 4 CPU entries
+    print the single-device run's report on a short 1-bit capture (the
+    JAX CLI's ``--mesh-devices`` cannot be the oracle here: on a 1-bit
+    capture its sharded tracker refuses the chunk, which sits on one
+    device).  On a machine without a card, a mesh of cards raises."""
+    cap = tmp_path / "cap.bin"
+    scene.write_1bit_capture(baseband, scene.FS / 4, scene.FS, cap)
+    argv = [str(cap), str(scene.FS / 4), str(scene.FS), "5000", "--fft-len",
+            "4096", "--threshold", "17", "--channels", "8", "--device", "cpu"]
+    assert run_receiver.main(argv) == 0
+    want = capsys.readouterr().out
+    for mesh_flag in (flag, "--mesh-devices=2"):
+        assert run_receiver.main(argv + [mesh_flag]) == 0
+        got = capsys.readouterr().out
+        assert "acquired 4 SVs" in got and got.count("[track ") == 4, got
+        assert_same_report(_until_report(got), _until_report(want))
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="cards"):
+            run_receiver.main(argv + ["--mesh-devices", "2", "--device",
+                                      "cuda"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The port imports torch and never jax nor the JAX package ``tpu_gnss``,
-in a fresh interpreter."""
+in a fresh interpreter: every module (``dist/`` included), chip_smoke.py
+and the entry point of the multi-process worker."""
 
 import os
 import subprocess
@@ -17,12 +18,21 @@ for n in names:
     importlib.import_module(n)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+# the multi-process worker's entry point, as `python -m` runs it
+import contextlib, io, runpy
+sys.argv = ["multihost", "--help"]
+try:
+    with contextlib.redirect_stdout(io.StringIO()):
+        runpy.run_module("tpu_gnss_torch.dist.multihost", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
              if m in ("jax", "tpu_gnss") or m.startswith(("jax.", "tpu_gnss.")))
 missing = {"tpu_gnss_torch.utils.xfer", "tpu_gnss_torch.cli.nmea_out",
            "tpu_gnss_torch.io.stream", "tpu_gnss_torch.io.loaders",
            "tpu_gnss_torch.utils.checkpoint", "tpu_gnss_torch.cli.gps_test",
-           "tpu_gnss_torch.cli.search_runner"} - set(names)
+           "tpu_gnss_torch.cli.search_runner", "tpu_gnss_torch.dist.shard",
+           "tpu_gnss_torch.dist.multihost"} - set(names)
 assert not missing, missing
 print(len(names), bad)
 assert not bad, bad

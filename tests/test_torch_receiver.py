@@ -66,9 +66,9 @@ def test_scene_copy_is_sample_identical():
 
 
 def test_unported_options_raise():
-    """``mesh`` is not ported; a link name the reference does not know
-    (``complex64`` among them) is refused."""
-    with pytest.raises(NotImplementedError):
+    """A mesh without a ``"dop"`` axis is refused, and so is a link name
+    the reference does not know (``complex64`` among them)."""
+    with pytest.raises(ValueError, match="'dop' axis"):
         Receiver(CFG, mesh=object(), device="cpu")
     for name in ("complex64", "int16", ""):
         with pytest.raises(ValueError, match="transfer_dtype"):

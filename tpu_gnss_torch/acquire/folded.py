@@ -468,6 +468,7 @@ class FoldedSearcher:
             cfg, min(cfg.dop_bin_hz, 1000.0 / n_coherent))).to(self.device)
         self._code_ffts = None
         self._cw_planes = None
+        self._dops_pad = None     # (shards, padded grid) of the mesh search
 
     def _spectra_np(self) -> np.ndarray:
         reps = period_replicas_np(self.cfg.fs, tuple(self.cfg.prns))
@@ -524,6 +525,33 @@ class FoldedSearcher:
             fs=self.cfg.fs, lo_rate=self.cfg.lo_rate,
             n_coherent=self.n_coherent, n_noncoherent=n_noncoherent,
             from_bits=from_bits, period=self.period, nf=self.nf)
+        return self._dets_from_stack(stacked.cpu().numpy(), skip_prns,
+                                     n_noncoherent)
+
+    def detections_refined_sharded(self, bits=None, iq=None,
+                                   n_noncoherent: int = 1, skip_prns=(),
+                                   *, mesh) -> list[dict]:
+        """Mesh-sharded cold search, the decisions of
+        :meth:`detections_refined_fast` (tpu_gnss/acquire/folded.py:
+        831-863): the kernel grid reduce is Doppler-sharded over
+        ``mesh.shape["dop"]`` and the refinement is the single-device
+        arithmetic (:func:`tpu_gnss_torch.dist.shard.
+        acquire_refined_sharded`).  The grid is padded to equal shards
+        (the kernel engine walks no Doppler chunks), once per mesh
+        shape."""
+        from ..dist.shard import acquire_refined_sharded, pad_dops
+        samples, from_bits = self._prep(bits, iq, n_noncoherent)
+        cw_r, cw_i = self.mxu_code_planes()
+        n_shards = mesh.shape["dop"]
+        if self._dops_pad is None or self._dops_pad[0] != n_shards:
+            padded = pad_dops(self.dops_hz.cpu().numpy(), n_shards, 1)
+            self._dops_pad = (n_shards,
+                              torch.from_numpy(padded).to(self.device))
+        stacked = acquire_refined_sharded(
+            samples, cw_r, cw_i, self.code_ffts_p, self._dops_pad[1],
+            mesh=mesh, fs=self.cfg.fs, lo_rate=self.cfg.lo_rate,
+            n_coherent=self.n_coherent, n_noncoherent=n_noncoherent,
+            period=self.period, nf=self.nf, from_bits=from_bits)
         return self._dets_from_stack(stacked.cpu().numpy(), skip_prns,
                                      n_noncoherent)
 

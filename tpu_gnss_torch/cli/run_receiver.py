@@ -8,11 +8,12 @@
         [--nmea-out FILE] [--iq-log FILE.npz] [--checkpoint FILE.npz]
         [--warm-start FILE.npz] [--no-directed] [--tow SEC]
         [--rtl-freq HZ] [--rtl-gain DB] [--rtl-ppm PPM]
-        [--device cuda|cuda:1|cpu]
+        [--mesh-devices N] [--device cuda|cuda:1|cpu]
 
 The counterpart of ``python -m tpu_gnss.cli.run_receiver``
-(tpu_gnss/cli/run_receiver.py); it prints the same report.  The device
-mesh (``--mesh-devices``) is not ported: argparse rejects that flag.
+(tpu_gnss/cli/run_receiver.py); it prints the same report.
+``--mesh-devices N`` runs the receiver on a mesh of N devices of the
+``--device`` type (N CPU entries, or cards 0..N-1).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from ..config import PRESETS, ReceiverConfig
 from ..io.stream import (FileSource1Bit, FollowIQSource, FollowSource1Bit,
@@ -257,6 +259,11 @@ def main(argv=None) -> int:
                    help="rtl_tcp manual tuner gain in dB (default: AGC)")
     p.add_argument("--rtl-ppm", type=int, default=0,
                    help="rtl_tcp frequency correction, ppm")
+    p.add_argument("--mesh-devices", type=int, default=None, metavar="N",
+                   help="distributed mode: run acquisition Doppler-sharded "
+                        "and the tracking bank channel-sharded over N "
+                        "devices of the --device type (N must divide the "
+                        "channel count)")
     p.add_argument("--device", default="cuda",
                    help="torch device for the device stages (default "
                         "cuda; there is no silent CPU fallback)")
@@ -300,8 +307,14 @@ def main(argv=None) -> int:
         max_hist = 600.0        # a live receiver must not grow unboundedly
     if_off = (args.if_offset if args.if_offset == "auto"
               else float(args.if_offset))
-    recv = Receiver(cfg, max_history_s=max_hist, if_offset_hz=if_off,
-                    transfer_dtype=args.link, device=args.device)
+    mesh = None
+    if args.mesh_devices:
+        from ..dist.shard import make_mesh
+        mesh = make_mesh(args.mesh_devices, axes=("dop",),
+                         device=torch.device(args.device).type)
+    recv = Receiver(cfg, max_history_s=max_hist, mesh=mesh,
+                    if_offset_hz=if_off, transfer_dtype=args.link,
+                    device=args.device)
     on_sol = live_nmea = None
     if args.follow:
         live_nmea = open(args.nmea_out, "w") if args.nmea_out else None

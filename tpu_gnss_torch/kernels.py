@@ -45,6 +45,8 @@ _SIGNATURES = {
     "mix_packed_launch": [_P] * 3 + [_I] + [_F] * 2 + [_I] * 2 + [_P],
     "corr_reduce_launch": [_P] * 10 + [_I] * 7 + [_P],
 }
+# the kernels' names, as LAUNCHES counts them
+KERNELS = tuple(k.removesuffix("_launch") for k in _SIGNATURES)
 
 _lock = threading.Lock()
 _lib = None

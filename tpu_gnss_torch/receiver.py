@@ -36,7 +36,11 @@ are the reference's host code (numpy, float64).  With ``on_solution``
 start takes a previous run's ephemerides (``warm_ephemerides``) and the
 almanac-predicted PRNs (``search_prns``), which direct the cold search.
 
-Not ported yet: a device mesh (``mesh`` raises ``NotImplementedError``).
+With ``mesh`` (a :class:`tpu_gnss_torch.dist.shard.Mesh` with a ``"dop"``
+axis) the same loop runs its heavy stages on the mesh: cold and
+re-acquisition Doppler-sharded through the fused kernel, the tracking
+bank channel-sharded.  The link, the 1-bit mix, the channel state the
+host edits and the fetches stay on ``device``.
 """
 
 from __future__ import annotations
@@ -272,7 +276,11 @@ class Receiver:
     per-chunk 6-sigma scale, or an 8-bit capture's own bytes), "int4"
     (packed nibbles), "int2" (2-bit sign/magnitude codes) or "float32"
     (exact samples).  An unknown link or ``acq_engine`` raises
-    ``ValueError``; ``mesh`` raises ``NotImplementedError``.
+    ``ValueError``.  ``mesh``: a :class:`tpu_gnss_torch.dist.shard.Mesh`
+    of this process with a ``"dop"`` axis, one of whose entries is
+    ``device`` (tpu_gnss/receiver.py:382-401); anything else raises
+    ``ValueError``, and so does a channel count that does not divide by
+    ``mesh.shape["dop"]``.
     """
 
     def __init__(self, cfg: ReceiverConfig, pll_bn_hz: float = 18.0,
@@ -297,8 +305,6 @@ class Receiver:
                  code_lock_gate: float = 1.3,
                  if_offset_hz="auto",
                  mesh=None, *, device):
-        if mesh is not None:
-            raise NotImplementedError("mesh mode is not ported yet")
         if transfer_dtype not in TRANSFER_DTYPES:
             raise ValueError(f"transfer_dtype must be one of "
                              f"{TRANSFER_DTYPES}, got {transfer_dtype!r}")
@@ -361,22 +367,43 @@ class Receiver:
                            else float(if_offset_hz))
         self._if_offset_locked = if_offset_hz != "auto"
         self._tables_cache = None
+        # mesh mode: Doppler-sharded searches and a channel-sharded bank
+        # over the mesh's "dop" axis, NAV and PVT on the host
+        self.mesh = mesh
+        self._tracker_sharded = None
+        if mesh is not None:
+            if "dop" not in getattr(mesh, "axis_names", ()):
+                raise ValueError("receiver mesh needs a 'dop' axis (used for "
+                                 "both the Doppler grid and the channel bank)")
+            if not any(d == self.device for d in mesh.devices.flat):
+                raise ValueError(f"device {self.device} is not an entry of "
+                                 f"the mesh {mesh}")
+            if len(mesh.local_positions()) != mesh.size:
+                raise ValueError("the receiver runs in one process: its mesh "
+                                 "must not span other ranks")
+            from .dist import shard as dshard
+            self._tracker_sharded = dshard.make_tracker_sharded(
+                mesh=mesh, axis="dop", fs=cfg.fs, pll_gains=self.pll_gains,
+                dll_gains=self.dll_gains, epochs_per_step=epochs_per_step,
+                agc_thresholds=self.agc_thresholds)
 
     # ------------------------------------------------------------------
     def _resolve_engine(self, searcher) -> str:
-        """Concrete acquisition engine: "auto" runs the fused kernel
-        engine wherever the transform length factors for it (the CUDA
-        kernel on a card, its plain version on the CPU), else the FFT
-        grid engine (tpu_gnss/receiver.py:404-419 without the mesh)."""
+        """Concrete acquisition engine (tpu_gnss/receiver.py:404-419):
+        "auto" runs the fused kernel engine wherever the transform length
+        factors for it (the CUDA kernel on a card, its plain version on
+        the CPU), Doppler-sharded on a mesh, else the FFT grid engine.  An
+        explicit engine is kept in mesh mode (tracking stays sharded)."""
         if self.acq_engine != "auto":
             return self.acq_engine
-        return "mxu" if searcher.mxu_supported() else "xla"
+        if not searcher.mxu_supported():
+            return "xla"
+        return "mxu_sharded" if self.mesh is not None else "mxu"
 
     def _cold_detections(self, head, bits: bool = False,
                          skip_prns=frozenset()) -> list:
         """Refined detections for channel seeding
-        (tpu_gnss/receiver.py:458-532, without the mesh engine and the
-        compile prewarm).
+        (tpu_gnss/receiver.py:458-532, without the compile prewarm).
 
         ``head`` is a complex-baseband segment, or {0,1} samples when
         ``bits``.  A single-block search that comes up short escalates to
@@ -396,6 +423,10 @@ class Receiver:
         kw = dict(bits=head) if bits else dict(iq=head)
 
         def run(n_nc, searcher):
+            if engine == "mxu_sharded":
+                return searcher.detections_refined_sharded(
+                    **kw, n_noncoherent=n_nc, skip_prns=skip_prns,
+                    mesh=self.mesh)
             if engine == "mxu":
                 return searcher.detections_refined_fast(
                     **kw, n_noncoherent=n_nc, skip_prns=skip_prns)
@@ -551,7 +582,7 @@ class Receiver:
                      use_packed, use_bits, use_rawiq, max_duration_s,
                      max_channels, warm_ephemerides, on_solution):
         """Streaming body of :meth:`process_source` (the reference's
-        tpu_gnss/receiver.py:765-1134 without the mesh mode)."""
+        tpu_gnss/receiver.py:765-1134)."""
         cfg = self.cfg
         with METRICS.stage("receiver.read"):
             first_item = next(blocks, None)
@@ -564,6 +595,11 @@ class Receiver:
             return ReceiverResult(detections=[], channels=[], solutions=[])
 
         n_chan = max_channels or cfg.num_chans
+        if self.mesh is not None and n_chan % self.mesh.shape["dop"]:
+            raise ValueError(
+                f"mesh mode: the channel count ({n_chan}) must divide by the "
+                f"mesh's 'dop' shards ({self.mesh.shape['dop']}); pass "
+                "max_channels")
         state = tc.init_state(n_chan, self.device)
         slot_prns = [None] * n_chan   # channel slot -> PRN (None = free)
         live: dict = {}      # channel slot -> active ChannelRecord
@@ -785,12 +821,18 @@ class Receiver:
                     reacq_job = launch_reacq(blk, n_dispatched)
                 tables, code_ffts = self._tables_for(tuple(slot_prns), n_chan)
                 with METRICS.stage("receiver.track"):
-                    state, out = tc.track_epochs(
-                        seg, state, tables, fs=cfg.fs,
-                        pll_gains=self.pll_gains, dll_gains=self.dll_gains,
-                        epochs_per_step=eps, code_ffts=code_ffts,
-                        agc_thresholds=self.agc_thresholds,
-                        aid_offset_hz=float(self._if_offset))
+                    if self._tracker_sharded is not None:
+                        state, out = self._tracker_sharded(
+                            seg, state, tables, code_ffts,
+                            float(self._if_offset))
+                    else:
+                        state, out = tc.track_epochs(
+                            seg, state, tables, fs=cfg.fs,
+                            pll_gains=self.pll_gains,
+                            dll_gains=self.dll_gains, epochs_per_step=eps,
+                            code_ffts=code_ffts,
+                            agc_thresholds=self.agc_thresholds,
+                            aid_offset_hz=float(self._if_offset))
                     out_dev, elp_dev = _pack_out(out)
                 pendings.append((fetch_pool.submit(fetch, out_dev, elp_dev),
                                  list(live.values()), n_ep))
