@@ -16,7 +16,9 @@ prints no result line):
    2048, n_acc 1 and 8), nottingham (73 rows, NF 16384), SYNTHETIC (49
    rows, NF 16384, u_rows = q_cols = 64), LIVE (41 rows, NF 10000 =
    100 x 100), hackrf (801 rows, NF 10000) and rtlsdr (2857 rows, NF
-   8192 = 64 x 128) shapes, ``corr_reduce`` also at the odd-n1 NF 12500;
+   8192 = 64 x 128) shapes, ``fold_corr_reduce`` also at e2e-wide (801
+   rows at NF 2048: phase 16's +-100 kHz replay search) and
+   ``corr_reduce`` at the odd-n1 NF 12500;
    each line gives the achieved TFLOP/s, counted as 8 x the complex MACs
    of the un-padded four-step over the kernel time: per (row, SV, block)
    n1*n1*n2 + n1*n2*q_cols for the inverse, plus per (row, block)
@@ -109,9 +111,24 @@ prints no result line):
    with the Doppler grid across them (launched in every process).  With
    two cards, the same on ``make_mesh(2, device="cuda")`` and 2 nccl
    processes; with one, a line says so.
+16. The reference's slow receiver oracles on the card, at their scenes
+   (2.048 Msps, 12 channels, 32 PRNs, ``fft_len`` 4096) and their own
+   bars: ``process_iq`` on phase 3's baseband (tests/test_e2e.py:193),
+   phase 3's capture at ``chunk_s`` 0.5 / 1 / 4 / 8 (:290), SV 3 faded
+   to 0.05 from 20 s of 26 s, gated and ungated (:326), a receiver moving
+   at ENU (15, 8, 0) m/s with its RMC / VTG (:360), the +60 kHz replay
+   through ``rfchannel.apply_channel`` on the +-100 kHz grid (:405), a 5
+   Hz/s Doppler ramp (:445), the 32 s soak with PRN 2 blocked from 8 to 14
+   s (tests/test_soak.py:30; the search that re-acquires PRN 2 must
+   launch ``fold_corr_reduce``), and the config matrix of
+   tests/test_stream.py:1243-1290 with the acquisition engine each ran.
+   Every run needs ``fold_corr_reduce`` (where the kernel engine ran),
+   ``track_corr``, and ``mix_packed`` where 1-bit input crosses as
+   packed words.  Its scenes build in worker processes while the card
+   runs phases 1-2b, and the workers end before phase 3.
 
 Phase 2 also holds ``fold_corr_reduce`` at the e2e shape with 5 and 11 SVs
-(the directed search's SV counts).  Phases 8-15 run before 6-7, inside
+(the directed search's SV counts).  Phases 8-16 run before 6-7, inside
 phase 3's temporary directory.  Every
 receiver run prints its wall, realtime factor, ``receiver.transfer``
 seconds and launch counts.
@@ -131,11 +148,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -517,21 +536,24 @@ def drive_corr_reduce(dev) -> int:
 
 def build_capture(cfg, duration, tmpdir, name, iq8=False):
     """The e2e scene recipe at ``cfg.fs`` written as a 1-bit IF capture
-    and, with ``iq8``, from the same baseband as an int8 I/Q capture.
-    Returns ``(1-bit path, int8 path or None, receiver ECEF)``."""
+    and, with ``iq8``, from the same baseband as an int8 I/Q capture and
+    as the complex baseband itself (``.npy``).  Returns ``(1-bit path,
+    int8 path or None, .npy path or None, receiver ECEF)``."""
     from tpu_gnss_torch.signal import scene
     t0 = time.perf_counter()
     iq, _, rx = scene.build_scene(duration=duration, fs=cfg.fs)
     path = os.path.join(tmpdir, f"{name}.bin")
     scene.write_1bit_capture(iq, cfg.fc, cfg.fs, path)
-    path8 = None
+    path8 = path_iq = None
     if iq8:
         path8 = os.path.join(tmpdir, f"{name}_iq8.bin")
         write_iq8(iq, path8)
+        path_iq = os.path.join(tmpdir, f"{name}_iq.npy")
+        np.save(path_iq, iq)
     del iq
     log(f"{name}: {duration:g} s scene at {cfg.fs / 1e6:g} Msps built in "
         f"{time.perf_counter() - t0:.1f} s")
-    return path, path8, rx
+    return path, path8, path_iq, rx
 
 
 def run_receiver(cfg, path, duration, name):
@@ -1755,7 +1777,353 @@ def mesh_phase(cfg_e2e, path_e2e, rx, res_e2e, scene9, runs9, dev, tmpdir):
                 per_step=per_step)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the reference's receiver scenarios on the card
+# ---------------------------------------------------------------------------
+
+# the scenes of tests/test_e2e.py:326-460 and tests/test_soak.py:30, at the
+# oracles' arguments: (build_scene keywords, written as)
+SCENARIO_SCENES = {
+    "faded": (dict(duration=26.0, degrade=(3, 20.0, 0.05)), "iq"),
+    "moving": (dict(duration=20.0, rx_vel_enu=(15.0, 8.0, 0.0)), "iq"),
+    "ramp": (dict(duration=20.0, doppler_ramp_hz_s=5.0), "iq"),
+    "wide": (dict(duration=20.0, noise=0.5), "replay"),
+    "soak": (dict(duration=32.0, dropout=(0, 8.0, 14.0)), "1bit"),
+}
+WIDE_OFFSET_HZ = 60e3
+# tests/test_stream.py:1244-1249: (fs, chunk_s, format, ragged tail)
+CONFIG_MATRIX = ((2.046e6, 0.5, "1bit", 0), (2.046e6, 1.0, "iq8", 123),
+                 (2.048e6, 2.0, "1bit", 8216), (2.048e6, 0.5, "iq8", 0))
+
+
+def scenario_scene(name, tmpdir):
+    """Build one scene of :data:`SCENARIO_SCENES` (in a worker process)
+    and write it under ``tmpdir``: the complex baseband as ``.npy``, a
+    1-bit IF capture, or the wide-offset replay (``apply_channel`` at
+    +60 kHz, delay 777 samples, gain 1.3) as a 1-bit capture.  Returns
+    ``(path, receiver ECEF, build seconds)``."""
+    from tpu_gnss_torch.signal import rfchannel, scene
+    kw, kind = SCENARIO_SCENES[name]
+    t0 = time.perf_counter()
+    iq, _, rx = scene.build_scene(**kw)
+    fs = scene.FS
+    if kind == "iq":
+        path = os.path.join(tmpdir, f"{name}.npy")
+        np.save(path, iq)
+    else:
+        if kind == "replay":
+            iq = rfchannel.apply_channel(iq, fs, freq_offset_hz=WIDE_OFFSET_HZ,
+                                         delay_samples=777.0, gain=1.3)
+        path = os.path.join(tmpdir, f"{name}.bin")
+        scene.write_1bit_capture(iq, fs / 4, fs, path)
+    return path, rx, time.perf_counter() - t0
+
+
+def start_scenario_scenes(pool, tmpdir) -> dict:
+    """Submit every scene of phase 16 to ``pool`` (they build while the
+    card runs phases 1-2b)."""
+    return {name: pool.submit(scenario_scene, name, tmpdir)
+            for name in SCENARIO_SCENES}
+
+
+def matrix_capture(fs, fmt, tail, tmpdir):
+    """tests/test_stream.py:1250-1281: PRNs 9 and 17, 3 s plus ``tail``
+    samples, as a 1-bit IF or an int8 I/Q capture.  Returns ``(path,
+    samples)``."""
+    from tpu_gnss_torch.io import loaders
+    from tpu_gnss_torch.signal import synth
+    n = int(3.0 * fs) + tail
+    n -= n % 8
+    svs = [synth.SvSignal(prn=9, doppler_hz=500.0, code_phase_chips=300.0),
+           synth.SvSignal(prn=17, doppler_hz=-1200.0, code_phase_chips=10.0)]
+    iq = synth.synth_baseband(svs, fs, n, noise_std=0.4, seed=4)
+    path = os.path.join(tmpdir, f"matrix_{fs:g}_{fmt}_{tail}.bin")
+    if fmt == "1bit":
+        with open(path, "wb") as f:
+            f.write(loaders.pack_1bit(synth.baseband_to_1bit_if(iq, fs / 4,
+                                                                fs)))
+        return path, n
+    raw = np.empty(2 * n, np.int8)
+    scale = 100.0 / max(np.abs(iq.real).max(), np.abs(iq.imag).max())
+    raw[0::2] = np.clip(np.rint(iq.real * scale), -127, 127)
+    raw[1::2] = np.clip(np.rint(iq.imag * scale), -127, 127)
+    raw.tofile(path)
+    return path, n
+
+
+def scenario_cfg(fs=2.048e6, **kw):
+    """The oracles' receiver configuration: 12 channels, 32 PRNs,
+    ``fft_len`` 4096, +-5 kHz and SNR threshold 20 unless given."""
+    from tpu_gnss_torch import ReceiverConfig
+    return ReceiverConfig(**dict(dict(fs=fs, fc=fs / 4, max_fo=5000.0,
+                                      fft_len=4096, snr_threshold=20.0,
+                                      num_chans=12), **kw))
+
+
+def packed_path(cfg, chunk_s) -> bool:
+    """Whether a 1-bit capture's packed words cross to the card and
+    ``mix_packed`` mixes them: the receiver takes that path where a chunk
+    is whole 32-bit words (receiver.process_source), else it mixes
+    unpacked bits with torch ops, as the reference does."""
+    return round(chunk_s * 1000) * round(cfg.fs * 1e-3) % 32 == 0
+
+
+def scenario_run(label, cfg, src, duration, dev, is_1bit, runs, chunk_s,
+                 **rx_kw):
+    """One scenario run through :func:`drive`, its engine logged and its
+    kernels required: ``fold_corr_reduce`` where the kernel engine ran,
+    ``track_corr``, and ``mix_packed`` on 1-bit input where the packed
+    path runs (:func:`packed_path`).  Each cold or background search's
+    ``fold_corr_reduce`` launches and returned PRNs are kept in
+    ``recv.searches``."""
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.receiver import Receiver
+    recv = Receiver(cfg, device=dev, **rx_kw)
+    engine = recv._resolve_engine(recv.searcher)
+    recv.searches = []
+    cold = recv._cold_detections
+
+    def counted(*a, **kw):
+        n0 = kernels.LAUNCHES.get("fold_corr_reduce")
+        dets = cold(*a, **kw)
+        recv.searches.append((kernels.LAUNCHES.get("fold_corr_reduce") - n0,
+                              sorted(d["prn"] for d in dets)))
+        return dets
+
+    recv._cold_detections = counted
+    res, wall, launches, _ = drive(label, recv, src, duration,
+                                   chunk_s=chunk_s)
+    packed = is_1bit and packed_path(cfg, chunk_s)
+    log(f"{label}: acquisition engine {engine!r} "
+        f"(receiver._resolve_engine), {len(recv.searches)} searches"
+        + (f", 1-bit {'packed words' if packed else 'unpacked bits'}"
+           if is_1bit else ""))
+    need = (("fold_corr_reduce",) if engine == "mxu" else ()) \
+        + ("track_corr",) + (("mix_packed",) if packed else ())
+    need_launched(label, launches, need)
+    runs[label] = dict(wall=wall, rt=duration / wall, launches=launches,
+                       engine=engine)
+    return recv, res
+
+
+def scenarios_phase(cfg_e2e, path_e2e, path_iq_e2e, rx_e2e, scenes, tmpdir,
+                    dev) -> dict:
+    """Phase 16: the port's counterpart of each slow oracle of the
+    reference's receiver, on the card at the oracles' geometry (2.048
+    Msps, 12 channels, 32 PRNs, ``fft_len`` 4096), each run held to its
+    oracle's own bars.  Returns ``{run: {wall, rt, launches, engine}}``."""
+    from tpu_gnss_torch.cli import nmea_out
+    from tpu_gnss_torch.io.stream import ArraySource, FileSource1Bit, \
+        IQFileSource
+    from tpu_gnss_torch.signal import scene
+    runs = {}
+    fs = scene.FS
+    built = {}
+    for name, fut in scenes.items():
+        path, rx, secs = fut.result()
+        built[name] = (path, rx)
+        log(f"scenario scene {name}: built in {secs:.1f} s in a worker "
+            "process")
+    iq_source = lambda path: ArraySource(np.load(path), fs)
+
+    # complex input (tests/test_e2e.py:193): phase 3's baseband
+    _, res = scenario_run("scenario complex 20 s", scenario_cfg(),
+                          iq_source(path_iq_e2e), 20.0, dev, False, runs,
+                          2.0)
+    sol = res.solutions[-1] if res.solutions else None
+    n_eph = sum(r.eph.valid() for r in res.channels)
+    err = fix_error(res, rx_e2e)
+    log(f"scenario complex: {len(res.detections)} detections, {n_eph} "
+        f"ephemerides, {len(res.solutions)} fixes, final error {err:.2f} m, "
+        + (f"lat {sol.lat_deg:.6f} lon {sol.lon_deg:.6f} speed "
+           f"{sol.vel.speed_mps:.3f} m/s vu {sol.vel.vu:.3f}" if sol and
+           sol.vel else "no velocity"))
+    if not (len(res.detections) >= 4 and n_eph >= 4
+            and len(res.solutions) >= 4 and err < 8.0 and sol.vel
+            and abs(sol.lat_deg - scene.TRUTH_LLA[0]) < 0.01
+            and abs(sol.lon_deg - scene.TRUTH_LLA[1]) < 0.01
+            and sol.vel.speed_mps < 1.0 and abs(sol.vel.vu) < 2.0):
+        fail("scenario complex: the bars of tests/test_e2e.py:193 missed")
+
+    # chunk matrix (tests/test_e2e.py:290): phase 3's 1-bit capture
+    counts = {}
+    for ch_s in (0.5, 1.0, 4.0, 8.0):
+        _, res = scenario_run(f"scenario chunk_s {ch_s:g} 20 s", cfg_e2e,
+                              FileSource1Bit(path_e2e, cfg_e2e), 20.0, dev,
+                              True, runs, ch_s)
+        err = fix_error(res, rx_e2e)
+        counts[ch_s] = len(res.solutions)
+        log(f"scenario chunk_s {ch_s:g}: {counts[ch_s]} fixes at epochs "
+            f"{[s.snap_epoch for s in res.solutions]}, final error "
+            f"{err:.2f} m")
+        if not err < 60.0:
+            fail(f"scenario chunk_s {ch_s:g}: final error {err} m (60 m)")
+    if len(set(counts.values())) != 1:
+        fail(f"scenario chunk matrix: fix counts differ {counts}")
+
+    # faded SV (tests/test_e2e.py:326)
+    path, rx = built["faded"]
+    iq = np.load(path)
+    deg_prn = scene.eph_prn(3)
+    fixes = {}
+    for gate in (True, False):
+        label = f"scenario faded {'gated' if gate else 'ungated'} 26 s"
+        _, res = scenario_run(label, scenario_cfg(), ArraySource(iq, fs),
+                              26.0, dev, False, runs, 2.0,
+                              los_power_ratio=0.002, quality_gate=gate)
+        sol = res.solutions[-1] if res.solutions else None
+        fixes[gate] = sol
+        log(f"{label}: last fix at epoch {sol.snap_epoch if sol else None}"
+            f", PRNs {sorted(s['prn'] for s in sol.sats) if sol else None}"
+            f", error {pos_error(sol, rx) if sol else float('nan'):.2f} m")
+    del iq
+    sg, su = fixes[True], fixes[False]
+    if not (sg and su and sg.snap_epoch >= 24000 and su.snap_epoch >= 24000
+            and deg_prn in [s["prn"] for s in su.sats]
+            and deg_prn not in [s["prn"] for s in sg.sats]
+            and pos_error(sg, rx) < 10.0
+            and pos_error(sg, rx) <= pos_error(su, rx) + 0.5):
+        fail("scenario faded: the bars of tests/test_e2e.py:326 missed")
+
+    # moving receiver (tests/test_e2e.py:360)
+    path, rx = built["moving"]
+    v_enu = np.array(SCENARIO_SCENES["moving"][0]["rx_vel_enu"])
+    _, res = scenario_run("scenario moving 20 s", scenario_cfg(),
+                          iq_source(path), 20.0, dev, False, runs, 2.0)
+    if not res.solutions or res.solutions[-1].vel is None:
+        fail("scenario moving: no fix with a velocity")
+    sol = res.solutions[-1]
+    truth = (np.asarray(rx) + scene.enu_to_ecef_matrix(*scene.TRUTH_LLA[:2])
+             @ v_enu * (sol.snap_epoch * 1e-3))
+    v = sol.vel
+    speed = float(np.hypot(v_enu[0], v_enu[1]))
+    course = float(np.degrees(np.arctan2(v_enu[0], v_enu[1])))
+    burst = nmea_out.solution_burst(sol)
+    rmc = next(s for s in burst if s.startswith("$GPRMC"))
+    vtg = next(s for s in burst if s.startswith("$GPVTG"))
+    knots, rmc_course = (float(x) for x in rmc.split("*")[0].split(",")[7:9])
+    kmh = float(vtg.split("*")[0].split(",")[7])
+    err = pos_error(sol, truth)
+    dcourse = lambda c: abs((c - course + 180) % 360 - 180)
+    log(f"scenario moving: error {err:.2f} m against the moved truth, "
+        f"velocity ENU ({v.ve:.3f}, {v.vn:.3f}, {v.vu:.3f}) m/s, speed "
+        f"{v.speed_mps:.3f}, course {v.course_deg:.2f} deg; RMC {knots} kn "
+        f"{rmc_course} deg, VTG {kmh} km/h")
+    if not (err < 15.0 and abs(v.ve - v_enu[0]) < 0.5
+            and abs(v.vn - v_enu[1]) < 0.5 and abs(v.vu - v_enu[2]) < 1.0
+            and abs(v.speed_mps - speed) < 0.5 and dcourse(v.course_deg) < 3
+            and abs(knots - speed * 3600.0 / 1852.0) < 1.0
+            and dcourse(rmc_course) < 3.0 and abs(kmh - speed * 3.6) < 1.8):
+        fail("scenario moving: the bars of tests/test_e2e.py:360 missed")
+
+    # wide-offset replay (tests/test_e2e.py:405) on the +-100 kHz grid
+    path, rx = built["wide"]
+    cfg_w = scenario_cfg(max_fo=100000.0, snr_threshold=17.0)
+    recv, res = scenario_run("scenario wide offset 20 s", cfg_w,
+                             FileSource1Bit(path, cfg_w), 20.0, dev, True,
+                             runs, 1.0)
+    med = float(np.median([d["doppler_hz"] for d in res.detections])) \
+        if res.detections else float("nan")
+    n_eph = sum(r.eph.valid() for r in res.channels)
+    err = fix_error(res, rx)
+    log(f"scenario wide offset: {len(recv.searcher.dops_hz)} Doppler rows, "
+        f"{len(res.detections)} detections "
+        f"{sorted(d['prn'] for d in res.detections)}, median Doppler "
+        f"{med:.1f} Hz, if_offset {recv._if_offset:.1f} Hz, {n_eph} "
+        f"ephemerides, final error {err:.2f} m")
+    if not (len(res.detections) >= 4 and abs(med - WIDE_OFFSET_HZ) < 2000.0
+            and abs(recv._if_offset - WIDE_OFFSET_HZ) < 2000.0
+            and n_eph >= 4 and err < 15.0):
+        fail("scenario wide offset: the bars of tests/test_e2e.py:405 missed")
+
+    # Doppler ramp (tests/test_e2e.py:445)
+    path, rx = built["ramp"]
+    _, res = scenario_run("scenario ramp 20 s", scenario_cfg(),
+                          iq_source(path), 20.0, dev, False, runs, 2.0)
+    sol = res.solutions[-1] if res.solutions else None
+    err = fix_error(res, rx)
+    log(f"scenario ramp 5 Hz/s: last fix at epoch "
+        f"{sol.snap_epoch if sol else None}, error {err:.2f} m")
+    if not (sol and sol.snap_epoch >= 16000 and err < 15.0):
+        fail("scenario ramp: the bars of tests/test_e2e.py:445 missed")
+
+    # dropout soak (tests/test_soak.py:30)
+    path, rx = built["soak"]
+    _, t0, t1 = SCENARIO_SCENES["soak"][0]["dropout"]
+    cfg_s = scenario_cfg(snr_threshold=17.0)
+    recv, res = scenario_run("scenario soak 32 s", cfg_s,
+                             FileSource1Bit(path, cfg_s), 32.0, dev, True,
+                             runs, 1.0)
+    prn = scene.eph_prn(0)
+    recs = [r for r in res.channels if r.prn == prn]
+    spans = [(r.start_epoch, r.start_epoch + r.n_epochs, r.lost)
+             for r in recs]
+    snap_s = [s.snap_epoch * 1e-3 for s in res.solutions]
+    first = snap_s[0] if snap_s else float("inf")
+    missing = sorted(set(np.round([t for t in np.arange(4.0, 31.0, 4.0)
+                                   if t >= first], 3))
+                     - set(np.round(snap_s, 3)))
+    worst = max((pos_error(s, rx) for s in res.solutions), default=np.inf)
+    hist = sum(a.nbytes for r in res.channels for parts in r._chunks.values()
+               for a in parts)
+    # the search that returned PRN 2 after its loss, with its launches
+    reacq = [n for n, prns in recv.searches[1:] if prn in prns]
+    log(f"scenario soak: PRN {prn} records (start, end, lost) {spans}, "
+        f"searches (fold_corr_reduce launches, PRNs) {recv.searches}, fixes "
+        f"at {snap_s} s, missed slots {missing}, worst error {worst:.2f} m, "
+        f"history {hist / 1e6:.2f} MB")
+    if not (len(recs) >= 2 and recs[0].lost
+            and t0 < spans[0][1] * 1e-3 < t1
+            and recs[1].start_epoch * 1e-3 >= t1 and not recs[1].lost
+            and recs[1].n_epochs >= 5000 and first <= 8.0 and not missing
+            and worst < 4.0):
+        fail("scenario soak: the bars of tests/test_soak.py:30 missed")
+    if not (reacq and reacq[0] > 0):
+        fail("scenario soak: no fold_corr_reduce launch in the search that "
+             f"re-acquired PRN {prn} at {recs[1].start_epoch * 1e-3} s")
+    log(f"scenario soak: the re-acquisition search launched "
+        f"fold_corr_reduce {reacq[0]} times; PRN {prn} tracked again from "
+        f"{recs[1].start_epoch * 1e-3:.1f} s of signal")
+    if hist >= 64 * sum(r.n_epochs for r in res.channels) + 1e6:
+        fail(f"scenario soak: history {hist} bytes is not O(epochs)")
+
+    # config matrix (tests/test_stream.py:1243-1290)
+    for fs_m, ch_s, fmt, tail in CONFIG_MATRIX:
+        path, n = matrix_capture(fs_m, fmt, tail, tmpdir)
+        cfg_m = scenario_cfg(fs=fs_m, snr_threshold=17.0)
+        link = "int2" if ch_s == 0.5 else "int8"
+        label = (f"scenario matrix {fs_m / 1e6:g} Msps {fmt} chunk_s "
+                 f"{ch_s:g} tail {tail}" + (f" {link}" if fmt == "iq8"
+                                            else ""))
+        src = (FileSource1Bit(path, cfg_m) if fmt == "1bit" else
+               IQFileSource(path, fs_m, remove_dc=False))
+        rx_kw = {} if fmt == "1bit" else dict(transfer_dtype=link)
+        _, res = scenario_run(label, cfg_m, src, n / fs_m, dev,
+                              fmt == "1bit", runs, ch_s, **rx_kw)
+        p = round(fs_m * 1e-3)
+        det = sorted(d["prn"] for d in res.detections)
+        held = {r.prn: float(np.abs(np.asarray(r.ip_hist[-100:])).mean()
+                             / p) for r in res.channels}
+        eps = sorted({r.n_epochs for r in res.channels})
+        log(f"{label}: detections {det}, last-100 mean |IP| / P by PRN "
+            f"{ {k: round(v, 3) for k, v in held.items()} }, epochs {eps} "
+            f"(bounds {(n // p // 10) * 10 - 10}..{n // p})")
+        if not ({9, 17} <= set(det) and held.get(9, 0) > 0.2
+                and held.get(17, 0) > 0.2
+                and all((n // p // 10) * 10 - 10 <= e <= n // p
+                        for e in eps)):
+            fail(f"{label}: the bars of tests/test_stream.py:1243 missed")
+    return runs
+
+
 def main() -> int:
+    with contextlib.ExitStack() as stack:
+        return run_phases(stack)
+
+
+def run_phases(stack: contextlib.ExitStack) -> int:
+    """Every phase; ``stack`` stops phase 16's scene workers and removes
+    their folder on any exit."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs a CUDA card", file=sys.stderr)
@@ -1763,6 +2131,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_gnss_torch import PRESETS, ReceiverConfig, kernels
     from tpu_gnss_torch.acquire.folded import FoldedSearcher
+
+    # phase 16's scenes build in worker processes while the card runs
+    # phases 1-2b
+    scene_dir = stack.enter_context(tempfile.TemporaryDirectory())
+    pool = ProcessPoolExecutor(
+        max_workers=min(len(SCENARIO_SCENES), max(1, os.cpu_count() - 2)),
+        mp_context=multiprocessing.get_context("spawn"))
+    stack.callback(pool.shutdown, cancel_futures=True)
+    scenes = start_scenario_scenes(pool, scene_dir)
 
     # --- phase 1: card and software -------------------------------------
     smi = subprocess.run(
@@ -1803,6 +2180,9 @@ def main() -> int:
     for k in ("hackrf", "rtlsdr"):
         shapes["fold_corr_reduce"][k] = check_fold(PRESETS[k].fs, rows[k], 1,
                                                    dev, k)
+    # phase 16's wide-offset replay: the e2e rate on the +-100 kHz grid
+    shapes["fold_corr_reduce"]["e2e-wide"] = check_fold(
+        2.048e6, 801, 1, dev, "e2e-wide")
     profile_fold_split(dev)
     cr_e2e = shapes["corr_reduce"]["e2e"] = check_corr_reduce(
         2.048e6, 41, 1, dev, "e2e")
@@ -1829,6 +2209,13 @@ def main() -> int:
               "live")
     # --- phase 2b: the links on the card ---------------------------------
     check_links(dev)
+    # the scene workers end before the timed receiver runs begin: phases
+    # 3-15 run on a host with no other work, as in earlier slices
+    t0 = time.perf_counter()
+    wait(list(scenes.values()))
+    pool.shutdown()
+    log(f"phase 16 scenes built; {time.perf_counter() - t0:.1f} s waited "
+        "for them after phase 2b")
 
     by_run = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1836,8 +2223,8 @@ def main() -> int:
         fs = 2.048e6
         cfg = ReceiverConfig(fs=fs, fc=fs / 4, max_fo=5000.0, fft_len=4096,
                              snr_threshold=17.0, num_chans=12)
-        path_e2e, path_e2e8, rx = build_capture(cfg, 20.0, tmp, "e2e",
-                                                iq8=True)
+        path_e2e, path_e2e8, path_e2e_iq, rx = build_capture(
+            cfg, 20.0, tmp, "e2e", iq8=True)
         res, wall, launches = run_receiver(cfg, path_e2e, 20.0, "e2e")
         decoded = [r for r in res.channels if r.eph.valid()]
         err = fix_error(res, rx)
@@ -1853,7 +2240,7 @@ def main() -> int:
         # --- phase 4: main path, nottingham geometry ---------------------
         cfg_n = ReceiverConfig(fs=5.456e6, fc=4.092e6, max_fo=5000.0,
                                num_chans=12)
-        path_n, _, _ = build_capture(cfg_n, 4.0, tmp, "nottingham")
+        path_n, _, _, _ = build_capture(cfg_n, 4.0, tmp, "nottingham")
         res_n, wall_n, launches_n = run_receiver(cfg_n, path_n, 4.0,
                                                  "nottingham")
         locked = locked_prns(res_n)
@@ -1917,6 +2304,16 @@ def main() -> int:
         for mode, r in gps.items():
             by_run[f"gps_test {mode} nottingham {GPS_TEST_TIME_RUNS} runs"] = \
                 r["launches"]
+        # --- phase 16: the reference's receiver scenarios ----------------
+        t16 = time.perf_counter()
+        scen = scenarios_phase(cfg, path_e2e, path_e2e_iq, rx, scenes, tmp,
+                               dev)
+        for run, r in scen.items():
+            by_run[run] = r["launches"]
+        log(f"phase 16: {len(scen)} scenario runs in "
+            f"{time.perf_counter() - t16:.1f} s, "
+            f"{sum(r['wall'] for r in scen.values()):.1f} s of it in "
+            "process_source")
 
     # --- phase 6: the folded search API at the nottingham geometry ------
     folded_search(cfg_n, dev)

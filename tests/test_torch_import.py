@@ -32,7 +32,11 @@ missing = {"tpu_gnss_torch.utils.xfer", "tpu_gnss_torch.cli.nmea_out",
            "tpu_gnss_torch.io.stream", "tpu_gnss_torch.io.loaders",
            "tpu_gnss_torch.utils.checkpoint", "tpu_gnss_torch.cli.gps_test",
            "tpu_gnss_torch.cli.search_runner", "tpu_gnss_torch.dist.shard",
-           "tpu_gnss_torch.dist.multihost"} - set(names)
+           "tpu_gnss_torch.dist.multihost", "tpu_gnss_torch.signal.rfchannel",
+           "tpu_gnss_torch.signal.resample", "tpu_gnss_torch.signal.adsb",
+           "tpu_gnss_torch.cli.playback", "tpu_gnss_torch.cli.nmea",
+           "tpu_gnss_torch.cli.convert", "tpu_gnss_torch.io.native"
+           } - set(names)
 assert not missing, missing
 print(len(names), bad)
 assert not bad, bad

@@ -2,11 +2,13 @@
 
 The recipe of tests/test_e2e.py:27-190 and tests/test_pvt.py:12-25
 (those modules import the JAX receiver): light-time-exact code phases,
-parity-valid NAV streams and Doppler-coherent carriers for a static
-receiver at a known position, so the whole chain — acquisition,
-tracking, bit/frame sync, ephemeris decode, PVT — must recover that
-position.  Sample-identical to ``tests.test_e2e.build_scene`` at the
-same arguments and the default rate.
+parity-valid NAV streams and Doppler-coherent carriers for a receiver at
+a known position, so the whole chain — acquisition, tracking, bit/frame
+sync, ephemeris decode, PVT — must recover that position.  The scene
+options of the reference's recipe (an SV's dropout or fade, a moving
+receiver, a common Doppler ramp) are copied from
+tests/test_e2e.py:53-190.  Sample-identical to
+``tests.test_e2e.build_scene`` at the same arguments and the default rate.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from ..constants import L1_HZ, OMEGA_E, SPEED_OF_LIGHT
 from ..io import loaders
 from ..nav.ephemeris import Ephemeris, encode_subframes
 from ..pvt import solve as ps
+from ..pvt.iono import ecef_to_enu
 from . import synth
 
 FS = 2.048e6
@@ -44,10 +47,15 @@ def eph_prn(k: int) -> int:
 
 
 def sv_time_knots(eph, rx_ecef, t_rx_knots) -> np.ndarray:
-    """Light-time-exact raw SV times at receiver-time knots."""
-    rx = np.asarray(rx_ecef, np.float64)
+    """Light-time-exact raw SV times at receiver-time knots.
+
+    ``rx_ecef``: ``[3]`` (static receiver) or ``[len(t_rx_knots), 3]``
+    (receiver position at each knot — moving-receiver scenes).
+    """
+    rx_arr = np.asarray(rx_ecef, np.float64)
     out = []
-    for t_rx in t_rx_knots:
+    for i, t_rx in enumerate(t_rx_knots):
+        rx_i = rx_arr if rx_arr.ndim == 1 else rx_arr[i]
         t_tx = t_rx - 0.075
         for _ in range(6):
             svp = np.array(eph.get_xyz(t_tx))
@@ -55,12 +63,20 @@ def sv_time_knots(eph, rx_ecef, t_rx_knots) -> np.ndarray:
             ct, st = np.cos(th), np.sin(th)
             eci = np.array([svp[0] * ct - svp[1] * st,
                             svp[0] * st + svp[1] * ct, svp[2]])
-            t_tx = t_rx - np.linalg.norm(rx - eci) / SPEED_OF_LIGHT
+            t_tx = t_rx - np.linalg.norm(rx_i - eci) / SPEED_OF_LIGHT
         raw = t_tx
         for _ in range(4):
             raw = t_tx + eph.clock_correction(raw)
         out.append(raw)
     return np.array(out)
+
+
+def enu_to_ecef_matrix(lat_deg: float, lon_deg: float) -> np.ndarray:
+    """Columns are the local East/North/Up unit vectors in ECEF."""
+    lat, lon = np.radians(lat_deg), np.radians(lon_deg)
+    r = np.column_stack([ecef_to_enu(None, lat, lon, e)
+                         for e in np.eye(3)])
+    return r.T   # ecef_to_enu's matrix maps ECEF->ENU; transpose inverts
 
 
 def sky_dopplers_hz(ephs, rx_ecef, t: float = 0.0) -> np.ndarray:
@@ -74,17 +90,34 @@ def sky_dopplers_hz(ephs, rx_ecef, t: float = 0.0) -> np.ndarray:
 
 
 def build_scene(duration: float = 20.0, n_sv: int = 6, noise: float = 0.7,
-                seed: int = 42, fs: float = FS):
+                seed: int = 42, fs: float = FS, dropout=None, degrade=None,
+                rx_vel_enu=None, doppler_ramp_hz_s: float = 0.0):
     """Consistent multi-SV complex-baseband scene: ``(iq, ephs, rx_ecef)``.
 
     Each SV's NAV stream cycles subframes [4, 1, 2, 3]; the start time is
     chosen so the receiver locks during the subframe-4 filler and then
     catches complete subframes 1-3 (a cold fix needs ~20 s).  Synthesis
     runs in 2 s segments (bounded memory, bit-identical to one pass).
+
+    ``dropout``: optional ``(sv_index, t0_s, t1_s)`` — that SV's signal
+    vanishes over [t0, t1) of receiver time (antenna blockage).
+    ``degrade``: optional ``(sv_index, t0_s, gain)`` — that SV's amplitude
+    drops to ``gain`` from t0 on (a deep fade).
+    ``rx_vel_enu``: optional ``[3]`` East/North/Up receiver velocity (m/s),
+    constant over the scene; ``rx_ecef`` in the return stays the t=0
+    position, and the truth at scene time t is
+    ``rx + enu_to_ecef_matrix(lat, lon) @ rx_vel_enu * t``.
+    ``doppler_ramp_hz_s``: a common carrier-Doppler ramp (Hz/s at L1), a
+    quadratic receiver clock term: every SV's Doppler ramps by
+    ``ramp * t``.
     """
     rng = np.random.default_rng(seed)
     ephs = make_constellation(n_sv, t_oe=T_OE)
     rx = ps.geodetic_to_ecef(*TRUTH_LLA)
+    vel_ecef = None
+    if rx_vel_enu is not None:
+        vel_ecef = enu_to_ecef_matrix(TRUTH_LLA[0], TRUTH_LLA[1]) \
+            @ np.asarray(rx_vel_enu, np.float64)
     n = int(duration * fs)
     t_knots = np.linspace(0, duration, max(41, int(3 * duration)))
     fit_deg = max(3, int(duration // 12))
@@ -93,8 +126,16 @@ def build_scene(duration: float = 20.0, n_sv: int = 6, noise: float = 0.7,
     sids = tuple(([4, 1, 2, 3] * ((n_sf + 3) // 4))[:n_sf])
     iq = np.zeros(n, dtype=np.complex64)
     seg_n = int(2.0 * fs)
+    # receiver-clock acceleration: sample n (receiver time t) sees the
+    # field at true time t + 0.5*(ramp/L1)*t^2
+    knots_t = t_rx0 + t_knots
+    if doppler_ramp_hz_s:
+        knots_t = knots_t + 0.5 * (doppler_ramp_hz_s / L1_HZ) * t_knots ** 2
+    rx_np = np.asarray(rx, np.float64)
+    rx_knots = (rx_np if vel_ecef is None
+                else rx_np[None, :] + np.outer(t_knots, vel_ecef))
     for k, eph in enumerate(ephs):
-        tsv_k = sv_time_knots(eph, rx, t_rx0 + t_knots)
+        tsv_k = sv_time_knots(eph, rx_knots, knots_t)
         if duration > 60.0:
             from scipy.interpolate import CubicSpline
             poly = CubicSpline(t_knots, tsv_k)
@@ -108,9 +149,17 @@ def build_scene(duration: float = 20.0, n_sv: int = 6, noise: float = 0.7,
         for s0 in range(0, n, seg_n):
             s1 = min(s0 + seg_n, n)
             t = np.arange(s0, s1, dtype=np.float64) / fs
-            iq[s0:s1] += synth.synth_from_sv_time(
+            sig = synth.synth_from_sv_time(
                 eph_prn(k), poly(t), stream, sf0, fs, amplitude=1.0,
                 t_rx=t, t_rx_ref=0.0, t_sv_ref=tsv0)
+            if dropout is not None and dropout[0] == k:
+                a = max(int(dropout[1] * fs), s0) - s0
+                b = max(int(dropout[2] * fs), s0) - s0
+                sig[a:b] = 0.0
+            if degrade is not None and degrade[0] == k:
+                a = min(max(int(degrade[1] * fs), s0) - s0, s1 - s0)
+                sig[a:] *= degrade[2]
+            iq[s0:s1] += sig
     # real rail first, then imag: the historical noise realization
     for rail in (1.0, 1.0j):
         for s0 in range(0, n, seg_n):
