@@ -126,9 +126,23 @@ prints no result line):
    ``track_corr``, and ``mix_packed`` where 1-bit input crosses as
    packed words.  Its scenes build in worker processes while the card
    runs phases 1-2b, and the workers end before phase 3.
+17. Boot and in-loop trace, each boot run a process of its own: (a) the
+   receiver CLI on phase 3's 20 s capture with the cache root
+   (``$TPU_GNSS_TORCH_CACHE_DIR``) at an empty directory A, (b)
+   ``python -m tpu_gnss_torch.cli.warmup`` at the e2e geometry in an
+   empty directory B, (c) (a) again in B: the wall of each from spawn to
+   exit, the nvcc seconds of (a) and (b), the boot saving (a) - (c).
+   (a) and (c) must hold phase 3's fix (within 60 m), (b) must launch
+   ``mix_packed`` and ``fold_corr_reduce``, (c) must build nothing (B's
+   listing and the library's mtime unchanged), and A and B must end
+   holding one library each.  Then the first 4 s of phase 3's capture
+   (phase 12's FFT-dot run) inside ``utils.metrics.device_trace``: from
+   the trace JSON, each receiver kernel's device time and call count,
+   which must equal ``kernels.LAUNCHES``, ``mix_packed``'s share of the
+   loop's device time, and the card's busy share of the traced window.
 
 Phase 2 also holds ``fold_corr_reduce`` at the e2e shape with 5 and 11 SVs
-(the directed search's SV counts).  Phases 8-16 run before 6-7, inside
+(the directed search's SV counts).  Phases 8-17 run before 6-7, inside
 phase 3's temporary directory.  Every
 receiver run prints its wall, realtime factor, ``receiver.transfer``
 seconds and launch counts.
@@ -150,6 +164,7 @@ import contextlib
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2116,6 +2131,166 @@ def scenarios_phase(cfg_e2e, path_e2e, path_iq_e2e, rx_e2e, scenes, tmpdir,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: boot and in-loop trace
+# ---------------------------------------------------------------------------
+
+# the CUDA kernels each receiver kernel's wrapper launches, once each a
+# call, by the names the profiler gives them
+TRACE_NAMES = {"fold_corr_reduce": ("fcr_forward", "fcr_reduce"),
+               "track_corr": ("track_corr_kernel",),
+               "mix_packed": ("mix_packed_kernel",)}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def boot_run(label, module_argv, cache):
+    """``python -m <module_argv>`` in a process of its own whose cache
+    root is ``cache``: ``(stdout, wall s from spawn to exit, nvcc s or
+    None)``; the nvcc seconds are those the build reports, on stderr, or
+    the warmup's report line."""
+    from tpu_gnss_torch import kernels
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    env[kernels.CACHE_ENV] = cache
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *module_argv], cwd=here,
+                       env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        fail(f"boot {label}: exit code {r.returncode}:\n{r.stdout[-2000:]}"
+             f"\n{r.stderr[-3000:]}")
+    m = re.search(r"\(nvcc ([0-9.]+) s\)", r.stderr + r.stdout)
+    return r.stdout, wall, (float(m.group(1)) if m else None)
+
+
+def cache_listing(cache):
+    """The cache root's entries and the library's mtime (ns)."""
+    names = sorted(os.listdir(cache))
+    libs = [n for n in names if n.startswith("libtpu_gnss_torch_")]
+    return names, (os.stat(os.path.join(cache, libs[0])).st_mtime_ns
+                   if len(libs) == 1 else None)
+
+
+def boot_phase(cfg, path, rx, tmpdir):
+    """Phase 17a-c: the receiver CLI on the 20 s e2e capture in an empty
+    cache root A (cold: builds once), ``cli.warmup`` at the e2e geometry
+    in an empty root B, and the receiver CLI again in B (warm: builds
+    nothing).  Each run's wall from spawn to exit, the nvcc seconds, and
+    the boot saving cold - warm."""
+    from tpu_gnss_torch import kernels
+    lib_name = kernels.library_path().name
+    geo = [str(cfg.fc), str(cfg.fs), "5000", "--fft-len", str(cfg.fft_len),
+           "--threshold", str(cfg.snr_threshold), "--channels",
+           str(cfg.num_chans), "--device", "cuda"]
+    rx_argv = ["tpu_gnss_torch.cli.run_receiver", path] + geo
+    root_a = os.path.join(tmpdir, "cache_a")
+    root_b = os.path.join(tmpdir, "cache_b")
+    os.mkdir(root_a)
+    os.mkdir(root_b)
+    out_a, wall_a, nvcc_a = boot_run("cold", rx_argv, root_a)
+    out_b, wall_b, nvcc_b = boot_run(
+        "warmup", ["tpu_gnss_torch.cli.warmup"] + geo
+        + ["--format", "1bit", "--chunk-s", "1"], root_b)
+    report = next((ln for ln in out_b.splitlines()
+                   if ln.startswith("warmup: ")), "")
+    log(f"boot (b) warmup: {report!r}")
+    warm_launches = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)",
+                                                      report)}
+    listing_b = cache_listing(root_b)
+    out_c, wall_c, nvcc_c = boot_run("warm", rx_argv, root_b)
+    err_a, err_c = cli_fix_error(out_a, rx), cli_fix_error(out_c, rx)
+    log(f"boot (a) cold, empty cache root: wall {wall_a:.3f} s (spawn to "
+        f"exit), nvcc {nvcc_a} s, last fix error {err_a:.2f} m")
+    log(f"boot (b) warmup, empty cache root: wall {wall_b:.3f} s, nvcc "
+        f"{nvcc_b} s, launches {warm_launches}")
+    log(f"boot (c) warm, after the warmup: wall {wall_c:.3f} s, nvcc "
+        f"{nvcc_c} s, last fix error {err_c:.2f} m")
+    log(f"boot saving (a) - (c): {wall_a - wall_c:.3f} s")
+    if not (err_a < 60.0 and err_c < 60.0):
+        fail("boot: the cold or the warm session has no fix within 60 m")
+    if not (warm_launches.get("mix_packed", 0) > 0
+            and warm_launches.get("fold_corr_reduce", 0) > 0):
+        fail("boot: the warmup did not launch mix_packed and "
+             "fold_corr_reduce")
+    if nvcc_a is None or nvcc_b is None:
+        fail("boot: the cold session or the warmup reported no build")
+    if nvcc_c is not None or cache_listing(root_b) != listing_b:
+        fail("boot: the warm session rebuilt the library")
+    for root in (root_a, root_b):
+        if os.listdir(root) != [lib_name]:
+            fail(f"boot: {root} holds {os.listdir(root)}, not one library "
+                 f"{lib_name}")
+
+
+def busy_union_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in sorted(spans):
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def loop_trace(cfg, path, dev, tmpdir, duration=4.0):
+    """Phase 17d: the first ``duration`` s of the e2e capture (phase 12's
+    FFT-dot run) inside ``utils.metrics.device_trace``; from the trace
+    JSON, each receiver kernel's device time and call count (equal to
+    ``kernels.LAUNCHES``), ``mix_packed``'s share of the loop's device
+    time, and the card's busy share of the traced window."""
+    import glob
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.io.stream import FileSource1Bit
+    from tpu_gnss_torch.receiver import Receiver
+    from tpu_gnss_torch.utils.metrics import device_trace
+    logdir = os.path.join(tmpdir, "trace")
+    recv = Receiver(cfg, device=dev)
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with device_trace(logdir):
+        recv.process_source(FileSource1Bit(path, cfg),
+                            max_duration_s=duration)
+        wall = time.perf_counter() - t0
+    export = time.perf_counter() - t0 - wall
+    launches = {k: kernels.LAUNCHES.get(k) for k in RECEIVER_KERNELS}
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"trace: {len(files)} trace files under {logdir}")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if str(e.get("cat", "")).lower()
+              in DEVICE_CATS]
+    if not device:
+        fail("trace: no device activity in the trace")
+    t_dev = sum(e["dur"] for e in device)
+    window = wall * 1e6          # the traced block, on the host's clock
+    busy = busy_union_us([(e["ts"], e["ts"] + e["dur"]) for e in device])
+    kernel_us = {}
+    for k, names in TRACE_NAMES.items():
+        counts = [sum(n in e.get("name", "") for e in device) for n in names]
+        us = kernel_us[k] = sum(e["dur"] for e in device
+                                if any(n in e.get("name", "") for n in names))
+        log(f"trace: {k} ({'+'.join(names)}): {counts} calls, device "
+            f"{us / 1e3:.3f} ms in all, {us / max(counts[0], 1):.2f} us a "
+            f"call; kernels.LAUNCHES {launches[k]}")
+        if launches[k] <= 0 or any(c != launches[k] for c in counts):
+            fail(f"trace: {k} calls {counts} differ from kernels.LAUNCHES "
+                 f"{launches[k]}")
+    share = kernel_us["mix_packed"] / t_dev
+    log(f"trace: e2e {duration:g} s FFT-dot run, wall {wall:.3f} s under "
+        f"the profiler (then {export:.3f} s to stop it and write "
+        f"{os.path.getsize(files[0]) / 1e6:.1f} MB of trace), "
+        f"{len(device)} device events, device time "
+        f"{t_dev / 1e3:.3f} ms; mix_packed {100 * share:.2f}% of the "
+        f"loop's device time; card busy {100 * busy / window:.2f}% of the "
+        f"traced block's wall (under the profiler)")
+
+
 def main() -> int:
     with contextlib.ExitStack() as stack:
         return run_phases(stack)
@@ -2314,6 +2489,11 @@ def run_phases(stack: contextlib.ExitStack) -> int:
             f"{time.perf_counter() - t16:.1f} s, "
             f"{sum(r['wall'] for r in scen.values()):.1f} s of it in "
             "process_source")
+        # --- phase 17: boot and in-loop trace -----------------------------
+        t17 = time.perf_counter()
+        boot_phase(cfg, path_e2e, rx, tmp)
+        loop_trace(cfg, path_e2e, dev, tmp)
+        log(f"phase 17: {time.perf_counter() - t17:.1f} s on {smi}")
 
     # --- phase 6: the folded search API at the nottingham geometry ------
     folded_search(cfg_n, dev)

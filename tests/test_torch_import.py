@@ -35,8 +35,8 @@ missing = {"tpu_gnss_torch.utils.xfer", "tpu_gnss_torch.cli.nmea_out",
            "tpu_gnss_torch.dist.multihost", "tpu_gnss_torch.signal.rfchannel",
            "tpu_gnss_torch.signal.resample", "tpu_gnss_torch.signal.adsb",
            "tpu_gnss_torch.cli.playback", "tpu_gnss_torch.cli.nmea",
-           "tpu_gnss_torch.cli.convert", "tpu_gnss_torch.io.native"
-           } - set(names)
+           "tpu_gnss_torch.cli.convert", "tpu_gnss_torch.io.native",
+           "tpu_gnss_torch.cli.warmup"} - set(names)
 assert not missing, missing
 print(len(names), bad)
 assert not bad, bad

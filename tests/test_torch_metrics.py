@@ -93,3 +93,71 @@ def test_iq_scatter_and_log(tmp_path):
     assert sorted(got.files) == sorted(want.files)
     for k in want.files:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+def _seeded_block(xp, x):
+    """A small seeded computation: Gram matrix, its trace and row sums."""
+    g = x @ x.T
+    return xp.trace(g), g.sum(1)
+
+
+def test_device_trace_torch_cpu(tmp_path, capsys):
+    """Around a seeded torch computation on the CPU the block's result is
+    unchanged and a TensorBoard ``*.pt.trace.json`` lands under logdir."""
+    import json
+
+    import torch
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((48, 32)))
+    want = _seeded_block(torch, x)
+    with tm.device_trace(str(tmp_path)):
+        got = _seeded_block(torch, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("aten::mm" in str(e.get("name", "")) for e in events)
+    assert "device_trace" not in capsys.readouterr().err
+
+
+def test_device_trace_profiler_that_cannot_start(tmp_path, monkeypatch,
+                                                 capsys):
+    """The reference's contract: the block runs and nothing raises when
+    the profiler cannot start; the port adds one line on stderr."""
+    import torch.profiler
+
+    def broken(*a, **kw):
+        raise RuntimeError("no profiler here")
+
+    monkeypatch.setattr(torch.profiler, "profile", broken)
+    ran = []
+    with tm.device_trace(str(tmp_path)):
+        ran.append(1)
+    assert ran == [1] and list(tmp_path.iterdir()) == []
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and err[0].startswith(
+        f"device_trace: no trace written to {tmp_path} (the profiler did "
+        "not start")
+
+
+def test_device_trace_jax_cpu(tmp_path, monkeypatch):
+    """The JAX ``device_trace`` on the same block leaves its result
+    unchanged too.  Its file is asserted only when ``jax.profiler``
+    started here (the reference swallows a failed start)."""
+    import jax
+    import jax.numpy as jnp
+    started = []
+    real = jax.profiler.start_trace
+
+    def spy(logdir, *a, **kw):
+        real(logdir, *a, **kw)
+        started.append(logdir)
+
+    monkeypatch.setattr(jax.profiler, "start_trace", spy)
+    x = np.random.default_rng(5).standard_normal((48, 32)).astype(np.float32)
+    want = [np.asarray(v) for v in _seeded_block(jnp, jnp.asarray(x))]
+    with jm.device_trace(str(tmp_path)):
+        got = [np.asarray(v) for v in _seeded_block(jnp, jnp.asarray(x))]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    if started:
+        assert list(tmp_path.rglob("*.xplane.pb")), list(tmp_path.rglob("*"))

@@ -3,9 +3,12 @@
 The sources are compiled by ``nvcc`` for ``sm_90a`` (one process per
 ``.cu`` file, all started together) and linked into one shared library
 with a plain C interface, loaded with :mod:`ctypes`.  The build
-runs at first use and lands in ``build/tpu_gnss_torch/`` beside the
-package (git-ignored), keyed on a hash of the sources and flags, so a
-fresh checkout builds exactly once and an edited source rebuilds.
+runs at first use (or ahead of a session, by ``cli.warmup``) and lands
+in the cache root: the directory that ``$TPU_GNSS_TORCH_CACHE_DIR``
+names, read at each call, else ``build/tpu_gnss_torch/`` beside the
+package (git-ignored).  The library is keyed on a hash of the sources
+and flags, so a fresh cache root builds exactly once and an edited
+source can never load stale code.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -26,6 +30,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tpu_gnss_torch"
+# the environment variable naming the cache root (the counterpart of the
+# reference's JAX_COMPILATION_CACHE_DIR)
+CACHE_ENV = "TPU_GNSS_TORCH_CACHE_DIR"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -67,11 +74,15 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
+    """The library in the cache root (``$TPU_GNSS_TORCH_CACHE_DIR`` if
+    set, else :data:`BUILD_DIR`), named by the hash of the sources and
+    flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libtpu_gnss_torch_{h.hexdigest()[:16]}.so"
+    root = Path(os.environ.get(CACHE_ENV) or BUILD_DIR)
+    return root / f"libtpu_gnss_torch_{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> Path:
@@ -79,15 +90,16 @@ def build(verbose: bool = False) -> Path:
 
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
     kernel) to a fresh build; its output is kept in :data:`BUILD_LOG`.
+    A build says so on stderr, with its seconds.
     """
     global BUILD_SECONDS, BUILD_LOG
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         # one nvcc per source, all started together, then one link
         compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
         jobs = []
@@ -117,6 +129,8 @@ def build(verbose: bool = False) -> Path:
                                + " ".join(cmd) + "\n" + BUILD_LOG)
         os.replace(so, out)  # atomic: a concurrent loader never sees half
     BUILD_SECONDS = time.perf_counter() - t0
+    print(f"tpu_gnss_torch: built {out.name} in {out.parent} "
+          f"(nvcc {BUILD_SECONDS:.2f} s)", file=sys.stderr, flush=True)
     return out
 
 

@@ -4,14 +4,18 @@ Copied from tpu_gnss/utils/metrics.py:21-64 (``Metrics`` / ``METRICS``,
 with a lock added: the port's prefetch, fetch and re-acquisition threads
 feed it) and 91-222 (``channel_bars``, ``solution_line``, ``latlon_dms``,
 ``gps_day_time``, ``iq_scatter_ascii``, ``save_iq_log``); that package's
-``__init__`` imports jax.  ``device_trace`` (:67-84, a ``jax.profiler``
-wrapper no caller uses) is not copied.  Stage times are host wall clock:
-a stage that enqueues device work without waiting measures the enqueue.
+``__init__`` imports jax.  ``device_trace`` ports :67-84 from
+``jax.profiler`` onto ``torch.profiler``.  Stage times are host wall
+clock: a stage that enqueues device work without waiting measures the
+enqueue.
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
+import os
+import sys
 import threading
 import time
 from collections import defaultdict
@@ -68,6 +72,63 @@ class Metrics:
 
 
 METRICS = Metrics()
+
+# device_trace's warm-up launches and pause between starting the
+# profiler and the block
+TRACE_WARMUP_LAUNCHES = 64
+TRACE_SETTLE_S = 0.1
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Capture a ``torch.profiler`` trace around a block: host activity,
+    plus the card's kernels and copies when CUDA is available, written
+    as a TensorBoard trace (``<logdir>/*.pt.trace.json``).
+
+    As the reference's (tpu_gnss/utils/metrics.py:67-84), the block
+    always runs and a profiler that cannot start or stop does not raise;
+    unlike it, one line on stderr says when no trace was written.  With
+    CUDA, the trace also holds :data:`TRACE_WARMUP_LAUNCHES` tiny kernels
+    launched before the block.
+    """
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    pattern = os.path.join(logdir, "*.pt.trace.json")
+    before = set(glob.glob(pattern))
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    prof, why = None, "no new *.pt.trace.json"
+    try:
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(logdir))
+        prof.start()
+    except Exception as e:      # the block runs whatever the profiler does
+        prof, why = None, f"the profiler did not start: {e!r}"
+    if prof is not None and cuda:
+        # the first kernel records after the profiler starts can be lost
+        # (seen on an H100 with torch 2.11: up to a run's first five
+        # launches missing from its trace, with or without a pause after
+        # the start); warm-up launches take that loss before the block
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_WARMUP_LAUNCHES):
+            warm.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                if cuda:
+                    torch.cuda.synchronize()
+                prof.stop()
+            except Exception as e:
+                why = f"the profiler did not stop: {e!r}"
+        if not set(glob.glob(pattern)) - before:
+            print(f"device_trace: no trace written to {logdir} ({why})",
+                  file=sys.stderr, flush=True)
 
 
 # ---------------------------------------------------------------------------
