@@ -43,7 +43,8 @@ prints no result line):
 4. The main path at the ``nottingham`` geometry (4 s at 5.456 Msps,
    NF 16384): >=4 detections and those channels locked.
 5. Launch counters: every receiver kernel (``fold_corr_reduce``,
-   ``track_corr``, ``mix_packed``) launched in both 1-bit runs.  Every
+   ``track_corr``, ``mix_packed``, ``loop_update``) launched in both
+   1-bit runs.  Every
    run of phases 3-12 sets the counts to 0 just before it and reads them
    just after, and fails if a kernel of its path was not launched.
 6. The folded search API at the nottingham geometry (32 PRNs, 73
@@ -102,7 +103,8 @@ prints no result line):
    ``TRACK_ATOL`` x max|P|; the receiver on a 2-shard mesh over phase 3's
    capture (phase 3's fix gate and fix epochs) and on a 4-shard mesh over
    phase 9's hackrf int8 scene (phase 9's gates and PRNs); the CUDA
-   kernels and copies per 10 ms step with no mesh and 1, 2, 4 shards; the
+   kernels and copies per 10 ms step with no mesh and 1, 2, 4 shards (at
+   most 3.5 per shard: each shard's tracker replays its own graph); the
    CLI with ``--mesh-devices 1``; the multi-process worker (``python -m
    tpu_gnss_torch.dist.multihost --flagship``) as 2 gloo processes sharing
    the card and 1 nccl process, 4 blocks each, against the single-process
@@ -137,12 +139,29 @@ prints no result line):
    listing and the library's mtime unchanged), and A and B must end
    holding one library each.  Then the first 4 s of phase 3's capture
    (phase 12's FFT-dot run) inside ``utils.metrics.device_trace``: from
-   the trace JSON, each receiver kernel's device time and call count,
-   which must equal ``kernels.LAUNCHES``, ``mix_packed``'s share of the
-   loop's device time, and the card's busy share of the traced window.
+   the trace JSON, each receiver kernel's device time and call count
+   (graph replays included), which must equal ``kernels.LAUNCHES``,
+   ``mix_packed``'s share of the loop's device time, and the card's busy
+   share of the traced window.
+18. The tracking bank as one device program per chunk: (a)
+   ``loop_update`` against ``loop_update_plain`` at 12 channels and
+   ``e_sub`` 10 on the taps of 100-step e2e and hackrf chains, each step
+   from the same state (state and outputs within ``LOOP_STEP_TOL`` x each
+   field's scale, phases wrap-aware; the next step's parameters; flags
+   equal), then each 100-step chain end to end (``LOOP_CHAIN_TOL``), and
+   both device times; (b) ``GraphedTracker`` against eager
+   ``track_epochs`` over phase 3's 20 s baseband in 1 s chunks and a tail,
+   with each correlator (FFT-dot and gather) and the same slot changes
+   between chunks: outputs within
+   ``LOOP_CHAIN_TOL``, NAV bit signs equal after lock, each replay
+   counted in ``kernels.LAUNCHES``; (c) phases 3, 4, 8, 9 (int8) and 10
+   run again, each wall with the receiver's stage seconds, and the CUDA
+   kernels and copies per 10 ms step of the e2e receiver (at most 3.5:
+   two in the step, the rest the chunk's copies and the search); (d)
+   ``loop_update``'s time, launches per second of signal and bound.
 
 Phase 2 also holds ``fold_corr_reduce`` at the e2e shape with 5 and 11 SVs
-(the directed search's SV counts).  Phases 8-17 run before 6-7, inside
+(the directed search's SV counts).  Phases 8-18 run before 6-7, inside
 phase 3's temporary directory.  Every
 receiver run prints its wall, realtime factor, ``receiver.transfer``
 seconds and launch counts.
@@ -151,10 +170,12 @@ result line ``{"ok": true, "device": {...}}``.  In the kernels line,
 ``max_abs_err`` is in the kernel's own output units and ``max_rel_err``
 is the error that the tolerance bounds: max |dpeak|/peak for
 ``fold_corr_reduce`` and ``corr_reduce``, max error / max|P| for
-``track_corr``, 0 for the bit-exact ``mix_packed``; ``launches`` counts
-the run named in ``launch_run``; the times, the bound and its share are
-those of the e2e shape; ``library_ms`` is null, since no single PyTorch
-call computes any of the four functions.  Exits non-zero without a card,
+``track_corr``, 0 for the bit-exact ``mix_packed``, the worst error x
+field scale for ``loop_update``; ``launches`` counts the run named in
+``launch_run``; the times, the bound and its share are those of the e2e
+shape (``loop_update``'s operations at the float32 peak, 67 TFLOP/s);
+``library_ms`` is null, since no single PyTorch call computes any of the
+five functions.  Exits non-zero without a card,
 and where the ``tpu_gnss_torch`` package is not beside it.
 """
 
@@ -861,7 +882,8 @@ def write_iq8(iq, path, signed=True, offset_hz=0.0, fs=None):
              else (raw + 128).astype(np.uint8)).tofile(f)
 
 
-RECEIVER_KERNELS = ("fold_corr_reduce", "track_corr", "mix_packed")
+RECEIVER_KERNELS = ("fold_corr_reduce", "track_corr", "mix_packed",
+                    "loop_update")
 
 
 def drive(name, recv, src, duration, **kw):
@@ -946,7 +968,8 @@ def iq_link_run(label, cfg, path, fmt, true, offset_hz, duration, link, dev,
     log(f"{label}: {len(det)} detections {det}, locked {locked}, if_offset "
         f"estimate {recv._if_offset:.1f} Hz (want {want_off:.1f}), "
         f"{sum(sent) / duration / 1e6:.3f} MB uploaded per second of signal")
-    need_launched(label, launches, ("fold_corr_reduce", "track_corr"))
+    need_launched(label, launches, ("fold_corr_reduce", "track_corr",
+                                    "loop_update"))
     if len(det) < 4 or not set(det) <= set(locked):
         fail(f"{label}: fewer than 4 detections, or detected channels not "
              "locked")
@@ -1067,7 +1090,8 @@ def gather_run(cfg, path, dev, duration=4.0):
             f"e2e {duration:g} s {name}",
             Receiver(cfg, fft_correlator=fft, device=dev),
             FileSource1Bit(path, cfg), duration, max_duration_s=duration)
-        need_launched(name, launches, ("fold_corr_reduce", "mix_packed")
+        need_launched(name, launches, ("fold_corr_reduce", "mix_packed",
+                                       "loop_update")
                       + (("track_corr",) if fft else ()))
         if not fft and launches["track_corr"]:
             fail("gather: track_corr launched on the gather path")
@@ -1488,13 +1512,13 @@ def check_refined_sharded(cfg, label, dev, meshes):
     return times
 
 
-def tracking_bank(fs, dev, eps):
-    """12 SVs of a synthesized scene at ``fs`` for 10 steps of ``eps``
-    epochs, and a ChannelState seeded on them (code spectra of the
+def tracking_bank(fs, dev, eps, steps=10):
+    """12 SVs of a synthesized scene at ``fs`` for ``steps`` steps of
+    ``eps`` epochs, and a ChannelState seeded on them (code spectra of the
     FFT-dot correlator): ``(samples, state, code_ffts)``."""
     from tpu_gnss_torch.signal import synth
     from tpu_gnss_torch.track import channel as tc
-    n_chan, steps = 12, 10
+    n_chan = 12
     rng = np.random.default_rng(int(fs) % 997)
     prns = list(range(1, n_chan + 1))
     dops = rng.uniform(-4000, 4000, n_chan)
@@ -1514,7 +1538,9 @@ def tracking_bank(fs, dev, eps):
 def check_tracker_sharded(fs, label, dev, meshes, eps=10):
     """``make_tracker_sharded`` on each mesh against ``track_epochs``: the
     prompt, early and late outputs within TRACK_ATOL x max|P|, and the
-    ``track_corr`` launches per step."""
+    ``track_corr`` and ``loop_update`` launches per step (each shard's
+    first chunk of a shape runs eagerly: one ``track_corr`` a step, one
+    ``loop_update`` a step and one more for step 0's parameters)."""
     from tpu_gnss_torch import kernels
     from tpu_gnss_torch.dist.shard import make_tracker_sharded
     from tpu_gnss_torch.track import channel as tc
@@ -1533,30 +1559,40 @@ def check_tracker_sharded(fs, label, dev, meshes, eps=10):
         _, got = run(x, state, None, spec)
         torch.cuda.synchronize()
         n = kernels.LAUNCHES.get("track_corr")
+        n_loop = kernels.LAUNCHES.get("loop_update")
         err = max(float((g - w).abs().max()) for g, w in
                   zip((got.ip, got.qp, got.e_mag, got.l_mag),
                       (want.ip, want.qp, want.e_mag, want.l_mag)))
         log(f"sharded tracker {label} {name}: {state.active.shape[0]} "
             f"channels, {steps} steps of {eps} epochs, max err {err:.3e} = "
             f"{err / ref:.2e} x max|P|={ref:.1f} (atol {TRACK_ATOL} x "
-            f"max|P|), track_corr {n / steps:g} launches per step")
-        if not err <= TRACK_ATOL * ref or n != steps * mesh.shape["dop"]:
+            f"max|P|), track_corr {n / steps:g} and loop_update "
+            f"{n_loop / steps:g} launches per step")
+        shards = mesh.shape["dop"]
+        if (not err <= TRACK_ATOL * ref or n != steps * shards
+                or n_loop != (steps + 1) * shards):
             fail(f"sharded tracker {label} {name}: max err {err}, "
-                 f"{n} track_corr launches")
+                 f"{n} track_corr and {n_loop} loop_update launches")
         out[name] = dict(max_abs_err=err, launches_per_step=n / steps)
     return out
+
+
+def profiled_kernels(fn):
+    """``(fn(), {name: count})`` of the CUDA kernels and copies ``fn``
+    ran, as ``torch.profiler`` records them (graph replays included)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {ev.key: ev.count for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def profiled_launches(fn):
     """``(fn(), the CUDA kernels and copies it ran)``, counted by
     ``torch.profiler`` (None when it records no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    n = sum(ev.count for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return out, (n or None)
+    out, counts = profiled_kernels(fn)
+    return out, (sum(counts.values()) or None)
 
 
 def mesh_receiver_runs(cfg_e2e, path_e2e, rx, res_e2e, scene9, runs9, dev):
@@ -1609,6 +1645,12 @@ def mesh_receiver_runs(cfg_e2e, path_e2e, rx, res_e2e, scene9, runs9, dev):
         + ", ".join(f"{'no mesh' if n == 0 else f'{n} shards'} "
                     f"{'not measured' if v is None else f'{v:.1f}'}"
                     for n, v in per_step.items()))
+    # each shard's GraphedTracker: track_corr and loop_update a step, its
+    # chunk's copies, and the search, as phase 18 bounds the single device
+    for n, v in per_step.items():
+        if v is not None and not v <= 3.5 * max(n, 1):
+            fail(f"mesh {n}: {v:.1f} CUDA kernels and copies per 10 ms "
+                 f"step (limit {3.5 * max(n, 1)})")
     return out, per_step
 
 
@@ -1914,7 +1956,8 @@ def scenario_run(label, cfg, src, duration, dev, is_1bit, runs, chunk_s,
         + (f", 1-bit {'packed words' if packed else 'unpacked bits'}"
            if is_1bit else ""))
     need = (("fold_corr_reduce",) if engine == "mxu" else ()) \
-        + ("track_corr",) + (("mix_packed",) if packed else ())
+        + ("track_corr", "loop_update") + (("mix_packed",) if packed
+                                            else ())
     need_launched(label, launches, need)
     runs[label] = dict(wall=wall, rt=duration / wall, launches=launches,
                        engine=engine)
@@ -2139,7 +2182,8 @@ def scenarios_phase(cfg_e2e, path_e2e, path_iq_e2e, rx_e2e, scenes, tmpdir,
 # call, by the names the profiler gives them
 TRACE_NAMES = {"fold_corr_reduce": ("fcr_forward", "fcr_reduce"),
                "track_corr": ("track_corr_kernel",),
-               "mix_packed": ("mix_packed_kernel",)}
+               "mix_packed": ("mix_packed_kernel",),
+               "loop_update": ("loop_update_kernel",)}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -2291,6 +2335,335 @@ def loop_trace(cfg, path, dev, tmpdir, duration=4.0):
         f"traced block's wall (under the profiler)")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the tracking bank as one device program per chunk
+# ---------------------------------------------------------------------------
+
+# loop_update against loop_update_plain, x each field's scale (max(1,
+# max|plain value|); for the carrier phase, the cycles the step advanced,
+# whose float32 ulp the phase carries): one step from the same state
+# differs by a few ulps (atan, summation order); after a 100-step chain on
+# the same taps the ulps of the accumulators (pll_acc, the phases) add up
+LOOP_STEP_TOL = 1e-5
+LOOP_CHAIN_TOL = 1e-4
+# the fields and EpochOut planes that wrap, and their periods
+STATE_WRAP = {"carrier_phase": 1.0, "code_phase": 1023.0}
+OUT_WRAP = {"code_phase": 1023.0}
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet)
+FP32_PEAK = 67e12
+
+
+def loop_bound_text(t: dict) -> str:
+    return (f"bound {t['bound_ms'] * 1e6:.2f} ns ({t['bound_by']}), share "
+            f"{100 * t['share']:.3f}%")
+
+
+def loop_case(fs, dev, steps=100, eps=10):
+    """A ``steps``-step eager chain of the FFT-dot tracker over
+    ``tracking_bank``'s 12 SVs at ``fs``: the packed state before each
+    step and that step's taps as ``loop_update`` takes them
+    (``(ip, qp, |e|, 0, |l|, 0)``: hypot(|e|, 0) is |e| exactly), and the
+    loop options."""
+    from tpu_gnss_torch.track import channel as tc
+    x, state, spec = tracking_bank(fs, dev, eps, steps=steps)
+    gains = dict(fs=fs, pll_gains=tc.second_order_gains(18.0, t_s=eps * 1e-3),
+                 dll_gains=tc.second_order_gains(2.0, t_s=eps * 1e-3),
+                 epochs_per_step=eps)
+    step_len = round(fs * 1e-3) * eps
+    states, taps = [], []
+    for s in range(steps):
+        states.append(tc.pack_state(state))
+        state, out = tc.track_epochs(x[s * step_len:(s + 1) * step_len],
+                                     state, None, code_ffts=spec, **gains)
+        z = torch.zeros_like(out.ip)
+        taps.append(torch.stack([out.ip, out.qp, out.e_mag, z, out.l_mag, z],
+                                dim=-1).contiguous())
+    return states, taps, tc.loop_opts(**gains)
+
+
+def field_err(got, want, names, wrap, scale_of):
+    """Worst ``|got - want| / scale`` over the rows of ``[k, ...]``
+    tensors named ``names`` (wrap-aware where ``wrap`` names a period),
+    the row it is in, and the largest ``|got - want|`` unscaled."""
+    worst, where, top = 0.0, None, 0.0
+    for name, g, w in zip(names, got, want):
+        d = (g.double() - w.double()).abs()
+        if name in wrap:
+            d = torch.minimum(d, wrap[name] - d)
+        top = max(top, float(d.max()))
+        e = float(d.max()) / scale_of(name, w)
+        if e > worst:
+            worst, where = e, name
+    return worst, where, top
+
+
+def compare_loop(got, want, outs_g, outs_w, opts, tol, label):
+    """State and output planes of ``loop_update`` against the plain
+    version within ``tol`` x scale; returns the worst scaled error and
+    the largest absolute one."""
+    from tpu_gnss_torch.track import channel as tc
+    cycles = float(want[6].abs().max()) * opts.period * opts.e_sub / opts.fs
+
+    def scale(name, w):
+        if name == "carrier_phase":
+            return max(1.0, cycles)
+        return max(1.0, float(w.abs().max()))
+
+    e_st, f_st, a_st = field_err(got, want, tc.ChannelState._fields,
+                                 STATE_WRAP, scale)
+    e_out, f_out, a_out = field_err(outs_g, outs_w, tc.EpochOut._fields,
+                                    OUT_WRAP, scale)
+    if not (e_st <= tol and e_out <= tol):
+        fail(f"loop_update {label}: state {f_st} {e_st:.3e}, outputs "
+             f"{f_out} {e_out:.3e} x scale (limit {tol})")
+    return max(e_st, e_out), max(a_st, a_out)
+
+
+def compare_params(got, want, opts, label):
+    """The next step's ``track_corr`` parameters: phase0 (wrap-aware mod
+    1, x the cycles a step advances), delta (x max|delta|) and the prompt
+    lag (wrap-aware mod P, x P) within ``LOOP_STEP_TOL``, flags equal."""
+    if not torch.equal(got[..., 3:], want[..., 3:]):
+        fail(f"loop_update {label}: wrap flags differ")
+    d = (got[..., :3].double() - want[..., :3].double()).abs()
+    d[..., 0] = torch.minimum(d[..., 0], 1.0 - d[..., 0])
+    d[..., 2] = torch.minimum(d[..., 2], opts.period - d[..., 2])
+    delta = float(want[..., 1].abs().max())
+    scale = (max(1.0, delta * opts.period * opts.e_sub), max(delta, 1e-30),
+             float(opts.period))
+    errs = [float(d[..., i].max()) / scale[i] for i in range(3)]
+    if not max(errs) <= LOOP_STEP_TOL:
+        fail(f"loop_update {label}: params phase0 / delta / lag differ by "
+             f"{errs} x scale (limit {LOOP_STEP_TOL})")
+
+
+def check_loop_update(fs, dev, label):
+    """Phase 18a: ``loop_update`` against ``loop_update_plain`` on the card
+    at 12 channels, ``e_sub`` 10, on the taps of a 100-step chain: each
+    step from the same state (the new state, the step's output rows and
+    the next step's ``track_corr`` parameters, flags equal), then the whole
+    chain fed through each; the kernel's time against the plain
+    version's."""
+    from tpu_gnss_torch.track import channel as tc
+    states, taps, opts = loop_case(fs, dev)
+    steps, (e_sub, n_chan) = len(taps), taps[0].shape[:2]
+    aid = tc.aid_tensor(0.0, dev)
+    step_err = step_abs = 0.0
+    for s in range(steps):
+        runs = []
+        for fn in (tc.loop_update, tc.loop_update_plain):
+            st = states[s].clone()
+            par = torch.empty(e_sub, n_chan, 5, device=dev)
+            outs = torch.empty(7, e_sub, n_chan, device=dev)
+            fn(taps[s], st, aid, par, outs, 0, opts)
+            runs.append((st, par, outs))
+        (sk, pk, ok), (sp, pp, op) = runs
+        e, a = compare_loop(sk, sp, ok, op, opts, LOOP_STEP_TOL,
+                            f"{label} step {s}")
+        step_err, step_abs = max(step_err, e), max(step_abs, a)
+        compare_params(pk, pp, opts, f"{label} step {s}")
+    chain = []
+    for fn in (tc.loop_update, tc.loop_update_plain):
+        st = states[0].clone()
+        outs = torch.empty(7, steps * e_sub, n_chan, device=dev)
+        for s in range(steps):
+            fn(taps[s], st, aid, None, outs, s, opts)
+        chain.append((st, outs))
+    chain_err, chain_abs = compare_loop(chain[0][0], chain[1][0],
+                                        chain[0][1], chain[1][1], opts,
+                                        LOOP_CHAIN_TOL, f"{label} chain")
+    # timed on a state of its own that the calls advance step by step
+    st = states[0].clone()
+    par = torch.empty(e_sub, n_chan, 5, device=dev)
+    outs = torch.empty(7, e_sub, n_chan, device=dev)
+    call = lambda fn: fn(taps[0], st, aid, par, outs, 0, opts)
+    ms = time_ms(lambda: call(tc.loop_update))
+    plain_ms = time_ms(lambda: call(tc.loop_update_plain))
+    # each input read once (taps, state, aid), each output written once
+    # (state, the next step's params, the step's output rows); per channel
+    # and epoch ~100 float32 operations (2 hypot, 2 atan, 2 divisions,
+    # the sums and the params), ~60 more per channel
+    nbytes = 4 * (taps[0].numel() + 2 * st.numel() + 1 + par.numel()
+                  + outs.numel())
+    flops = n_chan * (100 * e_sub + 60)
+    b_ms = max(flops / FP32_PEAK, nbytes / HBM_BPS) * 1e3
+    t = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_PEAK
+             else "operations", share=b_ms / ms, library_ms=None)
+    log(f"loop_update {label}: e_sub={e_sub} n_chan={n_chan}, {steps} steps "
+        f"one at a time: worst {step_err:.3e} x scale (limit "
+        f"{LOOP_STEP_TOL}; largest absolute {step_abs:.3e}); the "
+        f"{steps}-step chain: worst {chain_err:.3e} x scale (limit "
+        f"{LOOP_CHAIN_TOL}; largest absolute {chain_abs:.3e}); kernel "
+        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+        f"{loop_bound_text(t)}")
+    return dict(max_abs_err=step_abs, max_rel_err=step_err,
+                chain_err=chain_err, **t)
+
+
+def nav_bit_signs(ip, chans, first_epoch):
+    """Signs of the 20 ms prompt sums of channels ``chans`` from
+    ``first_epoch`` on."""
+    n = (ip.shape[0] - first_epoch) // 20
+    bits = ip[first_epoch:first_epoch + 20 * n].reshape(n, 20, -1).sum(1)
+    return torch.sign(bits[:, chans])
+
+
+def graphed_vs_eager(cfg, path_iq, res_e2e, dev, gather=False):
+    """Phase 18b: ``GraphedTracker`` and eager ``track_epochs`` over the
+    same 1 s chunks of phase 3's 20 s baseband (19 chunks and a 0.75 s
+    tail), with the FFT-dot correlator or with ``gather``, seeded from
+    phase 3's detections, with the same slot changes
+    between chunks (the first 4 detections at the start, the rest at 5 s,
+    one channel stopped at 10 s and re-seeded on its PRN at 12 s, an
+    oscillator offset set at 8 s): outputs within ``LOOP_CHAIN_TOL`` x
+    scale, NAV bit signs equal after lock, and each replay counted in
+    ``kernels.LAUNCHES``; each run's wall."""
+    from tpu_gnss_torch import kernels
+    from tpu_gnss_torch.constants import CHIP_RATE_HZ
+    from tpu_gnss_torch.track import channel as tc
+    from tpu_gnss_torch.track.graph import GraphedTracker
+    eps, n_chan = 10, 12
+    gains = dict(fs=cfg.fs,
+                 pll_gains=tc.second_order_gains(18.0, t_s=eps * 1e-3),
+                 dll_gains=tc.second_order_gains(2.0, t_s=eps * 1e-3),
+                 epochs_per_step=eps)
+    x = torch.from_numpy(np.load(path_iq).astype(np.complex64)).to(dev)
+    dets = sorted(res_e2e.detections, key=lambda d: -d["snr"])
+    seed = lambda d: (d["doppler_hz"],
+                      (d["ca_shift"] * CHIP_RATE_HZ / cfg.fs) % 1023.0,
+                      d["doppler_hz"])
+    p = round(cfg.fs * 1e-3)
+    bounds = [(k * 1000 * p, (k + 1) * 1000 * p) for k in range(19)]
+    bounds.append((19000 * p, 19750 * p))
+    codes = {}
+
+    def run(track):
+        state, prns, aid, outs = tc.init_state(n_chan, dev), [1] * n_chan, \
+            0.0, []
+        for k, (a, b) in enumerate(bounds):
+            starts = (list(enumerate(dets[:4])) if k == 0 else
+                      list(enumerate(dets[4:], 4)) if k == 5 else
+                      [(0, dets[0])] if k == 12 else [])
+            for ch, d in starts:
+                dop, cp, cd = seed(d)
+                # the code phase crept on since the search at epoch 0
+                rate = CHIP_RATE_HZ * (1.0 + cd / 1575.42e6)
+                cp = (cp + rate * (a / cfg.fs)) % 1023.0
+                state = tc.start_channels(state, [ch], [dop], [cp], [cd])
+                prns[ch] = d["prn"]
+            if k == 10:
+                state = tc.stop_channel(state, 0)
+            if k == 8:
+                aid = 37.0
+            key = tuple(prns)
+            if key not in codes:
+                codes[key] = torch.from_numpy(
+                    tc.channel_code_tables(prns, n_chan) if gather
+                    else tc.code_spectra_np(prns, n_chan, cfg.fs)).to(dev)
+            code = (codes[key], None) if gather else (None, codes[key])
+            state, out = track(x[a:b], state, *code, aid)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return state, tc.EpochOut(*(torch.cat(f) for f in zip(*outs)))
+
+    eager = lambda seg, st, tables, ffts, aid: tc.track_epochs(
+        seg, st, tables, code_ffts=ffts, aid_offset_hz=aid, **gains)
+    tracker = GraphedTracker(**gains, device=dev)
+    times, results, launches = {}, {}, {}
+    for name, fn in (("eager", eager), ("graphed", tracker)):
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        results[name] = run(fn)
+        times[name] = time.perf_counter() - t0
+        launches[name] = {k: kernels.LAUNCHES.get(k)
+                          for k in ("track_corr", "loop_update")}
+    # warm: the graphs exist, every chunk of the 1 s shape replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(tracker)
+    times["graphed, warm"] = time.perf_counter() - t0
+    (st_e, out_e), (st_g, out_g) = results["eager"], results["graphed"]
+    opts = tc.loop_opts(**gains)
+    name = "gather" if gather else "FFT-dot"
+    err, _ = compare_loop(tc.pack_state(st_g), tc.pack_state(st_e),
+                          torch.stack(list(out_g)), torch.stack(list(out_e)),
+                          opts, LOOP_CHAIN_TOL, f"graphed vs eager {name}")
+    exact = all(torch.equal(a, b) for a, b in zip(out_g, out_e))
+    # channels 1-5 tracked from 5 s at the latest, locked 2 s later
+    chans = list(range(1, min(len(dets), n_chan)))
+    bits_e, bits_g = (nav_bit_signs(o.ip, chans, 7000)
+                      for o in (out_e, out_g))
+    flips = int((bits_e != bits_g).sum())
+    steps = sum((b - a) // (p * eps) for a, b in bounds)
+    want = (dict(track_corr=0, loop_update=steps) if gather else
+            dict(track_corr=steps, loop_update=steps + len(bounds)))
+    log(f"graphed vs eager {name} tracker, e2e 20 s in 1 s chunks and a "
+        f"0.75 s "
+        f"tail ({steps} steps, {len(dets)} SVs, slot changes at 5, 8, 10 "
+        f"and 12 s): outputs {'bit-identical' if exact else 'differ'}, "
+        f"worst {err:.3e} x scale (limit {LOOP_CHAIN_TOL}); NAV bit signs "
+        f"of channels {chans} after 7 s: {flips} of {bits_e.numel()} "
+        f"differ; launches eager "
+        f"{launches['eager']}, graphed {launches['graphed']} (want "
+        f"{want}); wall eager {times['eager']:.3f} s, graphed (first use: "
+        f"eager chunk, capture) {times['graphed']:.3f} s, graphed warm "
+        f"{times['graphed, warm']:.3f} s")
+    if flips or launches["eager"] != want or launches["graphed"] != want:
+        fail(f"graphed vs eager {name}: NAV bit signs or launch counts "
+             "differ")
+    return dict(exact=exact, err=err, times=times)
+
+
+def retime_runs(cfg, path_e2e, path_e2e8, cfg_n, path_n, scene9, scene10,
+                dev):
+    """Phase 18c: phases 3, 4, 8, 9 (int8) and 10's receiver runs again,
+    each in a process that has run it once, its wall beside the
+    receiver's stage seconds; then the CUDA kernels and copies per 10 ms
+    step of the e2e 4 s receiver, by name."""
+    from tpu_gnss_torch.io.stream import FileSource1Bit, IQFileSource
+    from tpu_gnss_torch.receiver import Receiver
+    from tpu_gnss_torch.utils.metrics import METRICS
+    iq = lambda scene: (lambda: IQFileSource(scene[1], scene[0].fs,
+                                             scene[2]))
+    runs = (("e2e 1-bit 20 s", cfg, lambda: FileSource1Bit(path_e2e, cfg),
+             20.0),
+            ("nottingham 1-bit 4 s", cfg_n,
+             lambda: FileSource1Bit(path_n, cfg_n), 4.0),
+            ("e2e int8 I/Q 20 s", cfg,
+             lambda: IQFileSource(path_e2e8, cfg.fs, "int8"), 20.0),
+            ("hackrf int8 4 s", scene9[0], iq(scene9), 4.0),
+            ("rtlsdr int8 4 s", scene10[0], iq(scene10), 4.0))
+    out = {}
+    for name, c, src, duration in runs:
+        before = {k: sum(v) for k, v in METRICS.timings.items()}
+        res, wall, launches, _ = drive(f"re-timed {name}",
+                                       Receiver(c, device=dev), src(),
+                                       duration)
+        stages = {k: sum(v) - before.get(k, 0.0)
+                  for k, v in METRICS.timings.items()
+                  if k.startswith("receiver.")}
+        log(f"re-timed {name}: stages " + ", ".join(
+            f"{k.split('.')[1]} {v:.3f}" for k, v in sorted(
+                stages.items(), key=lambda kv: -kv[1])) + " s")
+        need_launched(f"re-timed {name}", launches,
+                      ("fold_corr_reduce", "track_corr", "loop_update"))
+        out[name] = dict(wall=wall, rt=duration / wall, stages=stages,
+                         launches=launches)
+    recv = Receiver(cfg, device=dev)
+    recv.process_source(FileSource1Bit(path_e2e, cfg), max_duration_s=4.0)
+    _, counts = profiled_kernels(lambda: recv.process_source(
+        FileSource1Bit(path_e2e, cfg), max_duration_s=4.0))
+    total = sum(counts.values())
+    top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
+    log(f"CUDA kernels and copies per 10 ms step, e2e 4 s receiver (second "
+        f"run of a receiver, torch.profiler, acquisition included): "
+        f"{total / 400.0:.2f} ({total} in 400 steps); most launched: "
+        + "; ".join(f"{k[:60]} {v}" for k, v in top))
+    return out, total / 400.0
+
+
 def main() -> int:
     with contextlib.ExitStack() as stack:
         return run_phases(stack)
@@ -2341,7 +2714,7 @@ def run_phases(stack: contextlib.ExitStack) -> int:
     rows = {k: len(FoldedSearcher(PRESETS[k], device=dev).dops_hz)
             for k in ("live", "hackrf", "rtlsdr")}
     shapes = {k: {} for k in ("fold_corr_reduce", "corr_reduce",
-                              "track_corr", "mix_packed")}
+                              "track_corr", "mix_packed", "loop_update")}
     fold_e2e = shapes["fold_corr_reduce"]["e2e"] = check_fold(
         2.048e6, 41, 1, dev, "e2e")
     # the directed cold search's SV counts (phase 14 runs the first)
@@ -2444,7 +2817,7 @@ def run_phases(stack: contextlib.ExitStack) -> int:
             f"{len(decoded8)} ephemerides, {len(res8.solutions)} fixes, "
             f"final error {err8:.2f} m (int8 link: the capture's own bytes)")
         need_launched("e2e iq8", launches8, ("fold_corr_reduce",
-                                             "track_corr"))
+                                             "track_corr", "loop_update"))
         if len(res8.detections) < 4 or len(decoded8) < 4 or not err8 < 60.0:
             fail(f"e2e iq8: fewer than 4 detections or ephemerides, or "
                  f"final fix error {err8} m (limit 60 m)")
@@ -2457,8 +2830,8 @@ def run_phases(stack: contextlib.ExitStack) -> int:
         for link, r in runs9.items():
             by_run[f"hackrf {link} 4 s"] = r["launches"]
         # --- phase 10: the rtlsdr preset, uint8 through the int8 link ----
-        runs10, _ = iq_preset_run("rtlsdr", 4.0, -18e3, False, ("int8",),
-                                  tmp, dev)
+        runs10, scene10 = iq_preset_run("rtlsdr", 4.0, -18e3, False,
+                                        ("int8",), tmp, dev)
         by_run["rtlsdr int8 4 s"] = runs10["int8"]["launches"]
         # --- phase 11: live mode ----------------------------------------
         by_run["live 1-bit follow 20 s"] = live_run(cfg, path_e2e, rx, 20.0,
@@ -2494,6 +2867,27 @@ def run_phases(stack: contextlib.ExitStack) -> int:
         boot_phase(cfg, path_e2e, rx, tmp)
         loop_trace(cfg, path_e2e, dev, tmp)
         log(f"phase 17: {time.perf_counter() - t17:.1f} s on {smi}")
+        # --- phase 18: the tracking bank as one program per chunk ---------
+        t18 = time.perf_counter()
+        loop_e2e = shapes["loop_update"]["e2e"] = check_loop_update(
+            2.048e6, dev, "e2e")
+        shapes["loop_update"]["hackrf"] = check_loop_update(
+            PRESETS["hackrf"].fs, dev, "hackrf")
+        for gather in (False, True):
+            graphed_vs_eager(cfg, path_e2e_iq, res, dev, gather=gather)
+        _, per_step = retime_runs(cfg, path_e2e, path_e2e8, cfg_n, path_n,
+                                  scene9, scene10, dev)
+        if not per_step <= 3.5:
+            fail(f"e2e receiver: {per_step:.2f} CUDA kernels and copies per "
+                 "10 ms step (limit 3.5: 2 in the step, the rest the "
+                 "chunk's copies and the search)")
+        n_loop = launches["loop_update"]
+        log(f"loop_update: {n_loop} launches in phase 3's e2e 20 s run, "
+            f"{n_loop / 20.0:.1f} per second of signal; kernel "
+            f"{loop_e2e['ms'] * 1e3:.2f} us, plain "
+            f"{loop_e2e['plain_ms'] * 1e3:.2f} us, "
+            f"{loop_bound_text(loop_e2e)}")
+        log(f"phase 18: {time.perf_counter() - t18:.1f} s on {smi}")
 
     # --- phase 6: the folded search API at the nottingham geometry ------
     folded_search(cfg_n, dev)
@@ -2528,6 +2922,12 @@ def run_phases(stack: contextlib.ExitStack) -> int:
              launches=cr_launches,
              launch_run="op call at the e2e shape (no caller in either "
                         "package)", **cr_e2e, shapes=shapes["corr_reduce"]),
+        dict(name="loop_update", route="cuda",
+             source="tpu_gnss_torch/csrc/loop_update.cu",
+             replaces="tpu_gnss/track/channel.py:323 (the lax.scan body at "
+                      ":543; no Pallas kernel)",
+             launches=n_loop, launch_run=e2e_run, **loop_e2e,
+             **entry("loop_update")),
     ]
     log(smi)                  # as nvidia-smi gives it
     print(json.dumps({"kernels": kern}), flush=True)

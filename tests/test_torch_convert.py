@@ -14,6 +14,7 @@ import contextlib
 import io
 import os
 import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -27,6 +28,28 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REF_NATIVE_DIR = os.path.join(os.path.dirname(ref.__file__), os.pardir,
                               "native")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_library_complete():
+    """Wait until the reference's native library loads.
+
+    The reference builds ``tpu_gnss/native/libsdrio.so`` with an unlocked
+    ``make`` that writes the file in place, so a test process running
+    beside another that is still building can load a half-written file
+    (``OSError: invalid ELF header``).  ``_load`` keeps no failure, so a
+    later call finds the finished file: retry every 0.5 s for up to 60 s,
+    then raise what the last attempt raised.
+    """
+    deadline = time.monotonic() + 60.0
+    while True:
+        try:
+            ref_native._load()
+            return
+        except (OSError, subprocess.CalledProcessError):
+            if time.monotonic() >= deadline:
+                raise
+            time.sleep(0.5)
 
 
 @pytest.fixture(scope="module")

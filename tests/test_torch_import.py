@@ -28,7 +28,7 @@ except SystemExit as e:
     assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
              if m in ("jax", "tpu_gnss") or m.startswith(("jax.", "tpu_gnss.")))
-missing = {"tpu_gnss_torch.utils.xfer", "tpu_gnss_torch.cli.nmea_out",
+missing = ({"tpu_gnss_torch.utils.xfer", "tpu_gnss_torch.cli.nmea_out",
            "tpu_gnss_torch.io.stream", "tpu_gnss_torch.io.loaders",
            "tpu_gnss_torch.utils.checkpoint", "tpu_gnss_torch.cli.gps_test",
            "tpu_gnss_torch.cli.search_runner", "tpu_gnss_torch.dist.shard",
@@ -36,7 +36,8 @@ missing = {"tpu_gnss_torch.utils.xfer", "tpu_gnss_torch.cli.nmea_out",
            "tpu_gnss_torch.signal.resample", "tpu_gnss_torch.signal.adsb",
            "tpu_gnss_torch.cli.playback", "tpu_gnss_torch.cli.nmea",
            "tpu_gnss_torch.cli.convert", "tpu_gnss_torch.io.native",
-           "tpu_gnss_torch.cli.warmup"} - set(names)
+           "tpu_gnss_torch.cli.warmup", "tpu_gnss_torch.track.graph"}
+          - set(names))
 assert not missing, missing
 print(len(names), bad)
 assert not bad, bad

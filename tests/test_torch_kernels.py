@@ -15,6 +15,7 @@ import torch
 
 from tpu_gnss_torch import kernels
 from tpu_gnss_torch.ops import mxu_corr, mxu_track, onebit
+from tpu_gnss_torch.track import channel
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -37,10 +38,15 @@ def _calls(device):
         "corr_reduce": lambda: mxu_corr.corr_reduce(
             z(2, n1, n2), z(2, n1, n2), z(1, n1, n2), z(1, n1, n2),
             period=period),
+        "loop_update": lambda: channel.loop_update(
+            z(10, 3, 6), z(12, 3), z(1), z(10, 3, 5), z(7, 20, 3), 1,
+            channel.loop_opts(fs=2.048e6, pll_gains=(1.0, 1.0),
+                              dll_gains=(1.0, 1.0), epochs_per_step=10)),
     }
 
 
-KERNELS = ["fold_corr_reduce", "track_corr", "mix_packed", "corr_reduce"]
+KERNELS = ["fold_corr_reduce", "track_corr", "mix_packed", "corr_reduce",
+           "loop_update"]
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -65,7 +71,8 @@ def test_library_path_hashes_sources():
     assert p == kernels.library_path()
     names = {s.name for s in kernels._sources()}
     assert {"fold_corr_reduce.cu", "track_corr.cu", "mix_packed.cu",
-            "corr_reduce.cu", "common.cuh"} <= names
+            "corr_reduce.cu", "loop_update.cu", "common.cuh"} <= names
+    assert set(KERNELS) == set(kernels.KERNELS)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -96,3 +103,27 @@ def test_launch_counter_threads():
     assert counter.get("k") == n_threads * n_adds
     counter.reset()
     assert counter.get("k") == 0
+
+
+def test_launches_recorded_under_capture_count_at_replay(monkeypatch):
+    """A launch made while the current stream is capturing a CUDA graph
+    is recorded, not run: it goes to the thread's ``recording`` tally
+    and not to ``LAUNCHES``; outside a capture it counts at once."""
+    kernels.LAUNCHES.reset()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with kernels.recording() as tally:
+        for _ in range(3):
+            kernels.launched("track_corr")
+        kernels.launched("loop_update")
+    kernels.launched("loop_update")        # a capture with no tally
+    assert tally == {"track_corr": 3, "loop_update": 1}
+    assert kernels.LAUNCHES.get("track_corr") == 0
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    kernels.launched("loop_update")
+    for name, n in tally.items():          # what a replay adds
+        kernels.LAUNCHES.add(name, n)
+    assert kernels.LAUNCHES.get("track_corr") == 3
+    assert kernels.LAUNCHES.get("loop_update") == 2
+    kernels.LAUNCHES.reset()

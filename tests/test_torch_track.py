@@ -178,3 +178,98 @@ def test_carrier_pull_in_matches_jax():
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-3)
     assert got.pll_acc[1] == 3.0 and got.pll_acc[0] == 0.0
+
+
+def _one_step_case(e_sub, agc, seed):
+    """A JAX bank of 4 channels (3 active, channel 3 inactive) from a
+    seeded mid-track state, one step of seeded samples through the gather
+    correlator: ``(state before, state after, EpochOut, kwargs)`` as
+    numpy, the state carried with every field set (previous prompts,
+    integrators, an AGC flag)."""
+    rng = np.random.default_rng(seed)
+    svs = [synth.SvSignal(prn=p, doppler_hz=d, code_phase_chips=c,
+                          amplitude=a) for p, d, c, a in _SVS]
+    p = int(round(FS * 1e-3))
+    iq = synth.synth_baseband(svs, FS, e_sub * p, noise_std=0.3, seed=seed)
+    st = jc.start_channels(jc.init_state(4), [0, 1, 2],
+                           [1234.0 + 7.0, -2100.0 - 5.0, 900.0],
+                           [500.25, 12.75, 300.0], [1234.0, -2100.0, 900.0])
+    f32 = lambda a: jnp.asarray(np.asarray(a, np.float32))
+    st = st._replace(
+        carrier_phase=f32(rng.uniform(0, 1, 4)),
+        pll_acc=f32(rng.normal(0, 20, 4)), dll_acc=f32(rng.normal(0, 1, 4)),
+        pwr_avg=f32(rng.uniform(1e5, 1e6, 4)),
+        ip_prev=f32(rng.normal(0, 900, 4)), qp_prev=f32(rng.normal(0, 900, 4)),
+        agc_on=jnp.asarray([True, False, True, True]))
+    kw = dict(fs=FS, pll_gains=jc.second_order_gains(18.0, t_s=e_sub * 1e-3),
+              dll_gains=jc.second_order_gains(2.0, t_s=e_sub * 1e-3),
+              epochs_per_step=e_sub, agc_thresholds=agc, aid_offset_hz=250.0)
+    tables = tc.channel_code_tables([7, 21, 5, 1], 4)
+    after, out = jc.track_epochs(jnp.asarray(iq), st, jnp.asarray(tables),
+                                 use_pallas=False, **kw)
+    to_np = lambda t: jax.tree.map(np.asarray, t)
+    return to_np(st), to_np(after), to_np(out), kw
+
+
+@pytest.mark.parametrize("e_sub,agc", [
+    (10, None), (4, None), (10, (2e5, 5e5))], ids=["e10", "e4", "e10-agc"])
+def test_loop_update_plain_matches_jax_epoch_body(e_sub, agc):
+    """One ``loop_update_plain`` step on the reference's own correlator
+    output ``(ip, qp, |e|, 0, |l|, 0)`` against the reference's epoch
+    body (tpu_gnss/track/channel.py:441-541): the new state and the
+    step's seven output planes within rtol 1e-6 (float32 atan and
+    summation order); flags equal; the next step's track_corr
+    parameters from the new state as ``step_params`` computes them.
+    The carrier phase is the float32 sum of a phase in [0, 1) and the
+    step's advance of tens of cycles, whose ulp (~2e-6 cycles) is above
+    1e-6 of the phase: it is held wrap-aware to 1e-6 of the cycles the
+    step advanced."""
+    before, after, out, kw = _one_step_case(e_sub, agc, seed=11)
+    taps = np.stack([out.ip, out.qp, out.e_mag, np.zeros_like(out.ip),
+                     out.l_mag, np.zeros_like(out.ip)], axis=-1)
+    state = tc.pack_state(tc.state_from_numpy(before, "cpu"))
+    opts = tc.loop_opts(**{k: v for k, v in kw.items()
+                           if k != "aid_offset_hz"})
+    outs = torch.empty(7, e_sub, 4)
+    par = torch.empty(e_sub, 4, 5)
+    tc.loop_update_plain(torch.from_numpy(taps.astype(np.float32)), state,
+                         tc.aid_tensor(kw["aid_offset_hz"], "cpu"), par,
+                         outs, 0, opts)
+    got = tc.state_to_numpy(tc.unpack_state(state))
+    for f in tc.ChannelState._fields:
+        a, b = getattr(got, f), getattr(after, f)
+        if f in ("active", "agc_on"):
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        elif f == "carrier_phase":
+            cycles = (np.abs(after.carrier_freq).max() * opts.period
+                      * e_sub / FS)
+            d = np.abs(a.astype(np.float64) - b)
+            assert np.minimum(d, 1.0 - d).max() <= 1e-6 * cycles
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-6, err_msg=f)
+    for plane, f in zip(outs.numpy(), tc.EpochOut._fields):
+        np.testing.assert_allclose(plane, getattr(out, f), rtol=1e-6,
+                                   err_msg=f)
+    if agc is not None:
+        assert got.agc_on.tolist() != before.agc_on.tolist()
+    torch.testing.assert_close(par, tc.step_params(state, opts), rtol=0,
+                               atol=0)
+
+
+def test_loop_update_prepare_only_writes_params():
+    """``taps=None`` leaves the state as it is and writes the params of
+    the step that starts from it: step 0's ``track_corr`` input."""
+    before, _, _, kw = _one_step_case(10, None, seed=3)
+    state = tc.pack_state(tc.state_from_numpy(before, "cpu"))
+    want_state = state.clone()
+    opts = tc.loop_opts(**{k: v for k, v in kw.items()
+                           if k != "aid_offset_hz"})
+    par = torch.full((10, 4, 5), float("nan"))
+    tc.loop_update(None, state, tc.aid_tensor(0.0, "cpu"), par, None, 0,
+                   opts)
+    assert torch.equal(state, want_state)
+    assert torch.equal(par, tc.step_params(state, opts))
+    # the wrap flags are 0/1 and the prompt lag lies in [0, P)
+    assert set(par[..., 3:].unique().tolist()) <= {0.0, 1.0}
+    assert bool((par[..., 2] >= 0).all()) and bool(
+        (par[..., 2] < opts.period).all())

@@ -83,7 +83,8 @@ def test_warmup_cpu_matches_jax_receiver(tmp_path, monkeypatch, capsys):
     assert len(out) == 1 and out[0].startswith("warmup: pipeline pass ")
     assert "on cpu; no kernel library built" in out[0]
     assert out[0].endswith(
-        "launches fold_corr_reduce=0 track_corr=0 mix_packed=0")
+        "launches fold_corr_reduce=0 track_corr=0 mix_packed=0 "
+        "loop_update=0")
     assert os.environ[kernels.CACHE_ENV] == str(root)
     assert kernels.library_path().parent == root
     assert not root.exists() and kernels._lib is None

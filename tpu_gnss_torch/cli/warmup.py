@@ -41,7 +41,8 @@ from ..io import loaders
 from ..io.stream import FileSource1Bit, IQFileSource
 from ..receiver import Receiver
 
-RECEIVER_KERNELS = ("fold_corr_reduce", "track_corr", "mix_packed")
+RECEIVER_KERNELS = ("fold_corr_reduce", "track_corr", "mix_packed",
+                    "loop_update")
 
 
 def write_noise(path: str, fmt: str, n: int, cfg: ReceiverConfig):

@@ -40,7 +40,8 @@ from ..acquire.folded import (FoldedResult, _baseband, _corr_reduce_grid_mxu,
                               _refine_from_centers, acquire_folded_batch_mxu)
 from ..acquire.search import (AcqResult, _first_argmax, acquire_from_fft,
                               mix_baseband)
-from ..track.channel import ChannelState, EpochOut, track_epochs
+from ..track.channel import ChannelState, EpochOut
+from ..track.graph import GraphedTracker
 
 
 def _rank() -> int:
@@ -406,8 +407,9 @@ def make_tracker_sharded(*, mesh: Mesh, axis: str = "blk", fs: float,
     aid_offset_hz=0.0) -> (state, EpochOut)``.  The ``ChannelState``
     fields (``[n_chan]``) and the code tables or spectra (whichever is
     given; the other is None) split along the channel axis over the
-    indices of mesh axis ``axis`` this process owns; each shard runs
-    :func:`tpu_gnss_torch.track.channel.track_epochs` on its slice, on its
+    indices of mesh axis ``axis`` this process owns; each shard runs its
+    own :class:`tpu_gnss_torch.track.graph.GraphedTracker` (``track_epochs``
+    as one CUDA graph per chunk shape on a card) on its slice, on its
     device, with the chunk ``samples`` replicated there.  ``EpochOut``
     comes back concatenated along dim 1 and the state along dim 0, on the
     state's device.  Where the mesh has other axes, one position per
@@ -421,6 +423,12 @@ def make_tracker_sharded(*, mesh: Mesh, axis: str = "blk", fs: float,
     shard_dev = {}
     for pos in mesh.local_positions():
         shard_dev.setdefault(pos[ai], mesh.devices[pos])
+    # one tracker per shard, never shared: two shards of one shape on one
+    # card would otherwise overwrite each other's graph outputs
+    trackers = {i: GraphedTracker(
+        fs=fs, pll_gains=pll_gains, dll_gains=dll_gains,
+        epochs_per_step=epochs_per_step, agc_thresholds=agc_thresholds,
+        device=shard_dev[i]) for i in own}
 
     def run(samples, state: ChannelState, code_tables=None, code_ffts=None,
             aid_offset_hz: float = 0.0):
@@ -435,12 +443,9 @@ def make_tracker_sharded(*, mesh: Mesh, axis: str = "blk", fs: float,
             dev = shard_dev[i]
             sl = slice(j * k, (j + 1) * k)
             cut = lambda t: None if t is None else t[sl].to(dev)
-            st, out = track_epochs(
+            st, out = trackers[i](
                 samples.to(dev), ChannelState(*(t[sl].to(dev) for t in state)),
-                cut(code_tables), fs=fs, pll_gains=pll_gains,
-                dll_gains=dll_gains, epochs_per_step=epochs_per_step,
-                code_ffts=cut(code_ffts), agc_thresholds=agc_thresholds,
-                aid_offset_hz=aid_offset_hz)
+                cut(code_tables), cut(code_ffts), aid_offset_hz)
             states.append(st)
             outs.append(out)
         cat = lambda parts, dim: torch.cat([t.to(home) for t in parts], dim)

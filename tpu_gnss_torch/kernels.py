@@ -17,6 +17,8 @@ Nothing here runs at import time.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,6 +29,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tpu_gnss_torch"
@@ -51,6 +55,7 @@ _SIGNATURES = {
     "track_corr_launch": [_P] * 10 + [_I] * 6 + [_P],
     "mix_packed_launch": [_P] * 3 + [_I] + [_F] * 2 + [_I] * 2 + [_P],
     "corr_reduce_launch": [_P] * 10 + [_I] * 7 + [_P],
+    "loop_update_launch": [_P] * 5 + [_I] * 7 + [_F] * 12 + [_P],
 }
 # the kernels' names, as LAUNCHES counts them
 KERNELS = tuple(k.removesuffix("_launch") for k in _SIGNATURES)
@@ -165,9 +170,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self._n: dict[str, int] = {}
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, n: int = 1) -> None:
         with self._lock:
-            self._n[name] = self._n.get(name, 0) + 1
+            self._n[name] = self._n.get(name, 0) + n
 
     def get(self, name: str) -> int:
         with self._lock:
@@ -179,3 +184,31 @@ class LaunchCounter:
 
 
 LAUNCHES = LaunchCounter()
+
+_capture = threading.local()
+
+
+def launched(name: str) -> None:
+    """Count one launch of kernel ``name`` in :data:`LAUNCHES`.
+
+    Under a CUDA graph capture on the current stream the kernel is
+    recorded, not run: the count goes to the tally of this thread's
+    :func:`recording`, and each replay of the graph adds the tally.
+    """
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally[name] += 1
+        return
+    LAUNCHES.add(name)
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect, per kernel, the launches that a graph capture on this
+    thread records (a ``collections.Counter``)."""
+    _capture.tally = collections.Counter()
+    try:
+        yield _capture.tally
+    finally:
+        _capture.tally = None

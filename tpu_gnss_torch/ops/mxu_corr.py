@@ -339,7 +339,7 @@ def fold_corr_reduce(x_r: torch.Tensor, x_i: torch.Tensor,
             *ptrs, rows, n_acc, n_sv, n1, n2, u_rows, q_cols, period,
             stream)
     kernels.check("fold_corr_reduce", err)
-    kernels.LAUNCHES.add("fold_corr_reduce")
+    kernels.launched("fold_corr_reduce")
     return peak, lag, tot
 
 
@@ -424,5 +424,5 @@ def corr_reduce(g_r: torch.Tensor, g_i: torch.Tensor, cw_r: torch.Tensor,
         err = kernels.lib().corr_reduce_launch(
             *ptrs, rows, n_acc, n_sv, n1, n2, q_cols, period, stream)
     kernels.check("corr_reduce", err)
-    kernels.LAUNCHES.add("corr_reduce")
+    kernels.launched("corr_reduce")
     return peak, lag, tot

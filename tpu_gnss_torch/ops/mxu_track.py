@@ -222,5 +222,5 @@ def track_corr(blk_r: torch.Tensor, blk_i: torch.Tensor,
         err = kernels.lib().track_corr_launch(
             *ptrs, e_sub, n_chan, n1, n2, u_rows, nf, stream)
     kernels.check("track_corr", err)
-    kernels.LAUNCHES.add("track_corr")
+    kernels.launched("track_corr")
     return out

@@ -143,5 +143,5 @@ def mix_packed(words: torch.Tensor, *, n_bits: int, lo_rate: float,
             out.data_ptr(), n_bits, c1, ph0, _sign_mask(i_tbl),
             _sign_mask(q_tbl), stream)
     kernels.check("mix_packed", err)
-    kernels.LAUNCHES.add("mix_packed")
+    kernels.launched("mix_packed")
     return out

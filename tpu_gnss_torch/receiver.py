@@ -70,6 +70,7 @@ from .nav.ephemeris import Ephemeris, resolve_week
 from .ops.onebit import mix_packed, words_to_tensor
 from .pvt import solve as pvt
 from .track import channel as tc
+from .track.graph import GraphedTracker
 from .track.quality import cn0_nwpr, pll_lock_metric
 from .utils import xfer
 from .utils.metrics import METRICS
@@ -370,7 +371,6 @@ class Receiver:
         # mesh mode: Doppler-sharded searches and a channel-sharded bank
         # over the mesh's "dop" axis, NAV and PVT on the host
         self.mesh = mesh
-        self._tracker_sharded = None
         if mesh is not None:
             if "dop" not in getattr(mesh, "axis_names", ()):
                 raise ValueError("receiver mesh needs a 'dop' axis (used for "
@@ -382,10 +382,17 @@ class Receiver:
                 raise ValueError("the receiver runs in one process: its mesh "
                                  "must not span other ranks")
             from .dist import shard as dshard
-            self._tracker_sharded = dshard.make_tracker_sharded(
+            self._tracker = dshard.make_tracker_sharded(
                 mesh=mesh, axis="dop", fs=cfg.fs, pll_gains=self.pll_gains,
                 dll_gains=self.dll_gains, epochs_per_step=epochs_per_step,
                 agc_thresholds=self.agc_thresholds)
+        else:
+            # one CUDA graph per chunk shape on a card (the reference's
+            # jitted track_epochs), track_epochs on the CPU
+            self._tracker = GraphedTracker(
+                fs=cfg.fs, pll_gains=self.pll_gains,
+                dll_gains=self.dll_gains, epochs_per_step=epochs_per_step,
+                agc_thresholds=self.agc_thresholds, device=self.device)
 
     # ------------------------------------------------------------------
     def _resolve_engine(self, searcher) -> str:
@@ -570,7 +577,7 @@ class Receiver:
                                 transform=upload)
         try:
             return self._stream_loop(
-                iter(prefetcher), source, n_samples, p, eps,
+                iter(prefetcher), source, n_samples, p,
                 chunk_len=chunk_len, use_packed=use_packed,
                 use_bits=use_bits, use_rawiq=use_rawiq,
                 max_duration_s=max_duration_s, max_channels=max_channels,
@@ -578,7 +585,7 @@ class Receiver:
         finally:
             prefetcher.stop()
 
-    def _stream_loop(self, blocks, source, n_samples, p, eps, *, chunk_len,
+    def _stream_loop(self, blocks, source, n_samples, p, *, chunk_len,
                      use_packed, use_bits, use_rawiq, max_duration_s,
                      max_channels, warm_ephemerides, on_solution):
         """Streaming body of :meth:`process_source` (the reference's
@@ -798,7 +805,14 @@ class Receiver:
                 if n_ep == 0:
                     break
                 tail_ep = n_samp // p - n_ep
-                if reacq_job is not None and reacq_job["done"].is_set():
+                if reacq_job is not None:
+                    # the search is applied at this boundary, the one after
+                    # its launch, however fast the tracker ran the chunk:
+                    # left to finish "when done", a search on a card that
+                    # tracks at ~100x realtime lands many chunks later, at
+                    # an epoch that depends on thread timing, and the
+                    # code-creep propagation over that gap can miss lock
+                    reacq_job["done"].wait()
                     if reacq_job["error"] is not None:
                         raise reacq_job["error"]
                     started = start_detections(reacq_job["dets"],
@@ -821,18 +835,8 @@ class Receiver:
                     reacq_job = launch_reacq(blk, n_dispatched)
                 tables, code_ffts = self._tables_for(tuple(slot_prns), n_chan)
                 with METRICS.stage("receiver.track"):
-                    if self._tracker_sharded is not None:
-                        state, out = self._tracker_sharded(
-                            seg, state, tables, code_ffts,
-                            float(self._if_offset))
-                    else:
-                        state, out = tc.track_epochs(
-                            seg, state, tables, fs=cfg.fs,
-                            pll_gains=self.pll_gains,
-                            dll_gains=self.dll_gains, epochs_per_step=eps,
-                            code_ffts=code_ffts,
-                            agc_thresholds=self.agc_thresholds,
-                            aid_offset_hz=float(self._if_offset))
+                    state, out = self._tracker(seg, state, tables, code_ffts,
+                                               float(self._if_offset))
                     out_dev, elp_dev = _pack_out(out)
                 pendings.append((fetch_pool.submit(fetch, out_dev, elp_dev),
                                  list(live.values()), n_ep))
