@@ -144,12 +144,16 @@ prints no result line):
    ``mix_packed``'s share of the loop's device time, and the card's busy
    share of the traced window.
 18. The tracking bank as one device program per chunk: (a)
-   ``loop_update`` against ``loop_update_plain`` at 12 channels and
-   ``e_sub`` 10 on the taps of 100-step e2e and hackrf chains, each step
-   from the same state (state and outputs within ``LOOP_STEP_TOL`` x each
-   field's scale, phases wrap-aware; the next step's parameters; flags
-   equal), then each 100-step chain end to end (``LOOP_CHAIN_TOL``), and
-   both device times; (b) ``GraphedTracker`` against eager
+   ``loop_update`` against ``loop_update_plain`` on the taps of 100-step
+   chains (``LOOP_SHAPES``: 12 channels at ``e_sub`` 10 at e2e and
+   hackrf, at ``e_sub`` 1 and 4 at e2e, and 3, 6, 13 and 200 channels at
+   ``e_sub`` 10), each step from the same state (state and outputs within
+   ``LOOP_STEP_TOL`` x each field's scale, phases wrap-aware; the next
+   step's parameters, with taps and with ``taps=None``; flags equal),
+   then each 100-step chain end to end with ``par=None``
+   (``LOOP_CHAIN_TOL``), both device times, the bound and the launch
+   floor (an empty ``torch.cuda._sleep(0)`` launch timed the same way);
+   (b) ``GraphedTracker`` against eager
    ``track_epochs`` over phase 3's 20 s baseband in 1 s chunks and a tail,
    with each correlator (FFT-dot and gather) and the same slot changes
    between chunks: outputs within
@@ -2437,35 +2441,93 @@ def compare_params(got, want, opts, label):
              f"{errs} x scale (limit {LOOP_STEP_TOL})")
 
 
-def check_loop_update(fs, dev, label):
+def widen_case(states, taps, n_chan, seed=5):
+    """``loop_case``'s states and taps on ``n_chan`` channels: channel k
+    takes channel k % 12's (the first 12 as they are, so fewer channels
+    are a slice); from channel 12 on, each channel's prompt (and stored
+    previous prompt) turned by a seeded angle, every tap scaled by a
+    seeded gain, its carrier and code phases shifted by seeded offsets,
+    and every 7th channel inactive."""
+    dev = taps[0].device
+    rng = np.random.default_rng(seed)
+    k = torch.arange(n_chan, device=dev)
+    idx, extra = k % 12, k >= 12
+    draw = lambda lo, hi: torch.from_numpy(rng.uniform(
+        lo, hi, n_chan).astype(np.float32)).to(dev) * extra
+    theta, gain = draw(-np.pi, np.pi), 1.0 + draw(-0.3, 0.3)
+    dphase, dcode = draw(0.0, 1.0), draw(0.0, 1023.0)
+    cos, sin = torch.cos(theta), torch.sin(theta)
+
+    def turn(i, q):
+        return (i * cos - q * sin) * gain, (i * sin + q * cos) * gain
+
+    out_taps = []
+    for t in taps:
+        t = t[:, idx].clone()
+        t[..., 0], t[..., 1] = turn(t[..., 0], t[..., 1])
+        t[..., 2:] *= gain[None, :, None]
+        out_taps.append(t.contiguous())
+    out_states = []
+    for st in states:
+        st = st[:, idx].clone()
+        st[1] = (st[1] + dphase) % 1.0
+        st[3] = (st[3] + dcode) % 1023.0
+        st[9], st[10] = turn(st[9], st[10])
+        st[0] = torch.where(extra & (k % 7 == 0), 0.0, st[0])
+        out_states.append(st.contiguous())
+    return out_states, out_taps
+
+
+# phase 18a's loop_update shapes: (label, sample rate, channels, epochs
+# per step): the main path's 12 x 10 at e2e and hackrf, then e_sub 1 and
+# 4 (the reference's own tests run 4), the mesh's shards of 3 and 6
+# channels, 13 channels (no multiple of 32) and 200 (several blocks)
+LOOP_SHAPES = (("e2e", 2.048e6, 12, 10), ("hackrf", 10e6, 12, 10),
+               ("e2e e_sub 1", 2.048e6, 12, 1),
+               ("e2e e_sub 4", 2.048e6, 12, 4),
+               ("e2e 3 ch", 2.048e6, 3, 10), ("e2e 6 ch", 2.048e6, 6, 10),
+               ("e2e 13 ch", 2.048e6, 13, 10),
+               ("e2e 200 ch", 2.048e6, 200, 10))
+
+
+def check_loop_update(fs, dev, label, n_chan, eps, floor_ms):
     """Phase 18a: ``loop_update`` against ``loop_update_plain`` on the card
-    at 12 channels, ``e_sub`` 10, on the taps of a 100-step chain: each
-    step from the same state (the new state, the step's output rows and
-    the next step's ``track_corr`` parameters, flags equal), then the whole
-    chain fed through each; the kernel's time against the plain
-    version's."""
+    at ``n_chan`` channels, ``eps`` epochs a step, on the taps of a
+    100-step chain (``loop_case``; ``widen_case`` for other channel
+    counts): each step from the same state (the new state, the step's
+    output rows and the next step's ``track_corr`` parameters, flags
+    equal), the parameters alone (``taps=None``, step 0 of a chunk), then
+    the whole chain fed through each without parameters (``par=None``, as
+    the gather correlator calls it); the kernel's time against the plain
+    version's, the bound and ``floor_ms``, an empty launch's time."""
     from tpu_gnss_torch.track import channel as tc
-    states, taps, opts = loop_case(fs, dev)
-    steps, (e_sub, n_chan) = len(taps), taps[0].shape[:2]
+    states, taps, opts = loop_case(fs, dev, eps=eps)
+    if n_chan != 12:
+        states, taps = widen_case(states, taps, n_chan)
+    steps = len(taps)
     aid = tc.aid_tensor(0.0, dev)
+    new_par = lambda: torch.empty(eps, n_chan, 5, device=dev)
     step_err = step_abs = 0.0
     for s in range(steps):
         runs = []
         for fn in (tc.loop_update, tc.loop_update_plain):
             st = states[s].clone()
-            par = torch.empty(e_sub, n_chan, 5, device=dev)
-            outs = torch.empty(7, e_sub, n_chan, device=dev)
+            par = new_par()
+            outs = torch.empty(7, eps, n_chan, device=dev)
             fn(taps[s], st, aid, par, outs, 0, opts)
-            runs.append((st, par, outs))
-        (sk, pk, ok), (sp, pp, op) = runs
+            prep = new_par()
+            fn(None, states[s].clone(), aid, prep, None, 0, opts)
+            runs.append((st, par, outs, prep))
+        (sk, pk, ok, qk), (sp, pp, op, qp) = runs
         e, a = compare_loop(sk, sp, ok, op, opts, LOOP_STEP_TOL,
                             f"{label} step {s}")
         step_err, step_abs = max(step_err, e), max(step_abs, a)
         compare_params(pk, pp, opts, f"{label} step {s}")
+        compare_params(qk, qp, opts, f"{label} step {s} taps=None")
     chain = []
     for fn in (tc.loop_update, tc.loop_update_plain):
         st = states[0].clone()
-        outs = torch.empty(7, steps * e_sub, n_chan, device=dev)
+        outs = torch.empty(7, steps * eps, n_chan, device=dev)
         for s in range(steps):
             fn(taps[s], st, aid, None, outs, s, opts)
         chain.append((st, outs))
@@ -2474,8 +2536,8 @@ def check_loop_update(fs, dev, label):
                                         LOOP_CHAIN_TOL, f"{label} chain")
     # timed on a state of its own that the calls advance step by step
     st = states[0].clone()
-    par = torch.empty(e_sub, n_chan, 5, device=dev)
-    outs = torch.empty(7, e_sub, n_chan, device=dev)
+    par = new_par()
+    outs = torch.empty(7, eps, n_chan, device=dev)
     call = lambda fn: fn(taps[0], st, aid, par, outs, 0, opts)
     ms = time_ms(lambda: call(tc.loop_update))
     plain_ms = time_ms(lambda: call(tc.loop_update_plain))
@@ -2485,18 +2547,22 @@ def check_loop_update(fs, dev, label):
     # the sums and the params), ~60 more per channel
     nbytes = 4 * (taps[0].numel() + 2 * st.numel() + 1 + par.numel()
                   + outs.numel())
-    flops = n_chan * (100 * e_sub + 60)
+    flops = n_chan * (100 * eps + 60)
     b_ms = max(flops / FP32_PEAK, nbytes / HBM_BPS) * 1e3
     t = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
              bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_PEAK
-             else "operations", share=b_ms / ms, library_ms=None)
-    log(f"loop_update {label}: e_sub={e_sub} n_chan={n_chan}, {steps} steps "
-        f"one at a time: worst {step_err:.3e} x scale (limit "
-        f"{LOOP_STEP_TOL}; largest absolute {step_abs:.3e}); the "
-        f"{steps}-step chain: worst {chain_err:.3e} x scale (limit "
-        f"{LOOP_CHAIN_TOL}; largest absolute {chain_abs:.3e}); kernel "
-        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-        f"{loop_bound_text(t)}")
+             else "operations", share=b_ms / ms, library_ms=None,
+             floor_ms=floor_ms)
+    geo = tc.loop_geometry(n_chan, eps)
+    log(f"loop_update {label}: e_sub={eps} n_chan={n_chan} ({geo[1]} "
+        f"block(s) of {geo[0]} channels, {geo[2]} threads, {geo[3]} B "
+        f"shared), {steps} steps one at a time with and without taps: "
+        f"worst {step_err:.3e} x scale (limit {LOOP_STEP_TOL}; largest "
+        f"absolute {step_abs:.3e}); the {steps}-step chain without "
+        f"params: worst {chain_err:.3e} x scale (limit {LOOP_CHAIN_TOL}; "
+        f"largest absolute {chain_abs:.3e}); kernel {ms * 1e3:.2f} us, "
+        f"plain {plain_ms * 1e3:.2f} us, {loop_bound_text(t)}, launch "
+        f"floor {floor_ms * 1e3:.2f} us")
     return dict(max_abs_err=step_abs, max_rel_err=step_err,
                 chain_err=chain_err, **t)
 
@@ -2869,10 +2935,11 @@ def run_phases(stack: contextlib.ExitStack) -> int:
         log(f"phase 17: {time.perf_counter() - t17:.1f} s on {smi}")
         # --- phase 18: the tracking bank as one program per chunk ---------
         t18 = time.perf_counter()
-        loop_e2e = shapes["loop_update"]["e2e"] = check_loop_update(
-            2.048e6, dev, "e2e")
-        shapes["loop_update"]["hackrf"] = check_loop_update(
-            PRESETS["hackrf"].fs, dev, "hackrf")
+        floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+        for name, fs_, n_chan, eps in LOOP_SHAPES:
+            shapes["loop_update"][name] = check_loop_update(
+                fs_, dev, name, n_chan, eps, floor_ms)
+        loop_e2e = shapes["loop_update"]["e2e"]
         for gather in (False, True):
             graphed_vs_eager(cfg, path_e2e_iq, res, dev, gather=gather)
         _, per_step = retime_runs(cfg, path_e2e, path_e2e8, cfg_n, path_n,
@@ -2886,7 +2953,8 @@ def run_phases(stack: contextlib.ExitStack) -> int:
             f"{n_loop / 20.0:.1f} per second of signal; kernel "
             f"{loop_e2e['ms'] * 1e3:.2f} us, plain "
             f"{loop_e2e['plain_ms'] * 1e3:.2f} us, "
-            f"{loop_bound_text(loop_e2e)}")
+            f"{loop_bound_text(loop_e2e)}, launch floor "
+            f"{floor_ms * 1e3:.2f} us")
         log(f"phase 18: {time.perf_counter() - t18:.1f} s on {smi}")
 
     # --- phase 6: the folded search API at the nottingham geometry ------

@@ -19,6 +19,9 @@ tests/test_stream.py:1243-1290 whole, and the scenarios that show their
 behaviour in a few seconds of signal.
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -407,3 +410,55 @@ def test_dropout_reacquire_short(tmp_path):
         assert dropout_epochs(res, prn) == [(0, 2000, True),
                                             (7000, 8000, False)]
     assert_same_decisions(runs, min_locked_epochs=1000)
+
+
+def test_reacquisition_applies_at_the_boundary_after_launch(tmp_path,
+                                                            monkeypatch):
+    """The port applies a background re-acquisition search at the chunk
+    boundary after its launch, however long the search takes (its
+    ``process_source`` docstring; the reference applies it when done,
+    tpu_gnss/receiver.py:1037).  The dropout scene of
+    ``test_dropout_reacquire_short`` through the port twice: as is, and
+    with every background ``_cold_detections`` held for twice the first
+    run's wall per chunk, longer than the tracker takes for a chunk.
+    Both give the same channel records (PRN 2 lost at 2 s and back at 7
+    s) and the same fixes."""
+    from tpu_gnss_torch.receiver import Receiver
+    iq, _, _ = scene.build_scene(duration=8.0, n_sv=4, dropout=(0, 1.0, 2.5))
+    path = write_1bit(iq, tmp_path)
+    del iq
+
+    def run():
+        cfg = _cfg("torch", snr_threshold=17.0)
+        recv = _receiver("torch", cfg, los_timeout_s=1.0,
+                         reacq_interval_s=2.0)
+        t0 = time.perf_counter()
+        res = recv.process_source(_source("torch", "1bit", cfg, path),
+                                  chunk_s=1.0)
+        return res, time.perf_counter() - t0
+
+    def records(res):
+        return [(r.prn, r.start_epoch, r.n_epochs, r.lost)
+                for r in res.channels]
+
+    base, wall = run()
+    hold_s = 2.0 * wall / 8
+    search = Receiver._cold_detections
+    held = []
+
+    def slow_search(self, *args, **kw):
+        if threading.current_thread() is not threading.main_thread():
+            time.sleep(hold_s)
+            held.append(hold_s)
+        return search(self, *args, **kw)
+
+    monkeypatch.setattr(Receiver, "_cold_detections", slow_search)
+    slow, _ = run()
+    assert held, "no background search ran"
+    prn = scene.eph_prn(0)
+    for res in (base, slow):
+        assert dropout_epochs(res, prn) == [(0, 2000, True),
+                                            (7000, 8000, False)]
+    assert records(slow) == records(base)
+    assert ([(s.snap_epoch, *pos(s)) for s in slow.solutions]
+            == [(s.snap_epoch, *pos(s)) for s in base.solutions])

@@ -6,7 +6,9 @@ banks start from one state (the JAX state carried across with
 the FFT-dot correlator (the port's plain version against the JAX einsum
 path) or the gather correlator (``code_tables``, no spectra) on both
 sides.  Tolerances as stated there: ip/qp/e_mag atol 2e-3·ref,
-code_phase atol 1e-4 chips, carrier_freq atol 0.05 Hz.
+code_phase atol 1e-4 chips, carrier_freq atol 0.05 Hz.  Also the
+on-device spectra function ``code_spectra`` against the reference's, and
+the launch geometry of the ``loop_update`` kernel (``loop_geometry``).
 """
 
 import jax
@@ -273,3 +275,49 @@ def test_loop_update_prepare_only_writes_params():
     assert set(par[..., 3:].unique().tolist()) <= {0.0, 1.0}
     assert bool((par[..., 2] >= 0).all()) and bool(
         (par[..., 2] < opts.period).all())
+
+
+@pytest.mark.parametrize("fs,prns,n_chan", [
+    (2.048e6, [3, 7, 19], 5), (5.456e6, [1, 32], 4),
+    (10e6, [5, 21, 12], 12)], ids=["2.048", "5.456", "10"])
+def test_code_spectra_matches_jax(fs, prns, n_chan):
+    """``code_spectra`` against the reference's jitted function
+    (tpu_gnss/track/channel.py:601-630), fewer PRNs than channels: the
+    same NF, complex64, and every bin within 1e-6 x max|spec|, a few
+    float32 ulps of the largest bin (the two FFTs round differently; the
+    wrap's float32 angles are the same numbers in both)."""
+    want, nf_x = jc.code_spectra(prns, n_chan, fs)
+    got, nf = tc.code_spectra(prns, n_chan, fs, "cpu")
+    want = np.asarray(want)
+    assert nf == nf_x and got.dtype == torch.complex64
+    assert tuple(got.shape) == want.shape == (n_chan, nf)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("e_sub", [1, 4, 10, 20])
+@pytest.mark.parametrize("n_chan", [1, 3, 6, 12, 13, 32, 200, 256])
+def test_loop_geometry_covers_every_epoch_once(n_chan, e_sub):
+    """``loop_geometry``: a block of C channels x e_sub epochs within the
+    card's 1024 threads and the default 48 KB of shared memory (the
+    block's taps and 7 floats per channel), enough blocks for every
+    channel, and thread ``e*C + c`` of block b on (channel b*C + c, epoch
+    e) covering each (channel, epoch) exactly once."""
+    chans, blocks, threads, smem = tc.loop_geometry(n_chan, e_sub)
+    assert threads == chans * e_sub <= 1024
+    assert smem == 4 * chans * (6 * e_sub + 7) <= 48 * 1024
+    assert blocks * chans >= n_chan
+    tid = np.arange(threads)
+    ch = (np.arange(blocks)[:, None] * chans + tid % chans).ravel()
+    ep = np.tile(tid // chans, blocks)
+    live = ch < n_chan
+    cells = ch[live] * e_sub + ep[live]
+    assert np.array_equal(np.sort(cells), np.arange(n_chan * e_sub))
+    assert tc.loop_geometry(n_chan, e_sub) == (chans, blocks, threads, smem)
+
+
+def test_loop_geometry_rejects_a_step_no_block_holds():
+    """One channel's 1024 epochs still fit a block; 1025 raise."""
+    assert tc.loop_geometry(3, 1024)[:3] == (1, 3, 1024)
+    with pytest.raises(ValueError, match="1025"):
+        tc.loop_geometry(3, 1025)

@@ -13,7 +13,13 @@ commands in turns, so that a slow spell of the host falls on both:
   shapes, one tracking step of 10 epochs x 12 channels
   (``chip_smoke.track_case``), with the host time of one call (wrapper
   and launch, 200 calls enqueued without waiting); ``mix_packed`` at the
-  e2e, nottingham and LIVE rates.  Device times per call, calls enqueued
+  e2e, nottingham and LIVE rates; ``loop_update`` on the e2e 12 x 10 step
+  of ``chip_smoke.loop_case``, and that case's 100-step chain from its
+  first state with the next step's parameters written each step, with
+  the sha256 of its taps, the final state, the output planes and the
+  last parameters (the case is made on the CPU through the plain
+  versions, so both trees get the same inputs: equal hashes say the two
+  kernels agree bit for bit).  Device times per call, calls enqueued
   back to back behind a sleep kernel (``chip_smoke.time_ms``).
 * ``run``: the receiver on the 20 s e2e scene (written once, before the
   workers start): wall seconds of one ``process_source`` and its host
@@ -24,7 +30,8 @@ commands in turns, so that a slow spell of the host falls on both:
   most own time.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line per
-tree and each tree's profile; ``--out`` also writes the JSON to a file.
+tree, whether every ``loop_update`` chain of both trees hashed the same,
+and each tree's profile; ``--out`` also writes the JSON to a file.
 Needs a card.
 """
 
@@ -42,7 +49,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SMOKE = os.path.join(os.path.dirname(HERE), "chip_smoke.py")
 
 _WORKER = r"""
-import cProfile, importlib.util, io, json, pstats, sys, time
+import cProfile, hashlib, importlib.util, io, json, pstats, sys, time
 tree, smoke, capture = sys.argv[1:4]
 sys.path.insert(0, tree)
 import numpy as np
@@ -54,6 +61,7 @@ from tpu_gnss_torch import PRESETS, ReceiverConfig, kernels
 from tpu_gnss_torch.io.stream import FileSource1Bit
 from tpu_gnss_torch.ops import mxu_track, onebit
 from tpu_gnss_torch.receiver import Receiver
+from tpu_gnss_torch.track import channel as tc
 from tpu_gnss_torch.utils.metrics import METRICS
 assert kernels.__file__.startswith(tree), kernels.__file__
 dev = torch.device("cuda", 0)
@@ -87,7 +95,35 @@ def kern():
                   phase0_quarters=float((s0 * float(lo_rate)) % 4.0))
         res[f"mix_packed {name} ms"] = cs.time_ms(
             lambda: onebit.mix_packed(words, **kw))
+    res.update(loop_kern())
     return res
+
+
+_loop = {}
+
+
+def loop_kern():
+    if not _loop:
+        states, taps, opts = cs.loop_case(fs, torch.device("cpu"))
+        _loop.update(states=[t.to(dev) for t in states],
+                     taps=[t.to(dev) for t in taps], opts=opts)
+    states, taps, opts = _loop["states"], _loop["taps"], _loop["opts"]
+    e_sub, n_chan = taps[0].shape[:2]
+    aid = tc.aid_tensor(0.0, dev)
+    par = torch.empty(e_sub, n_chan, 5, device=dev)
+    st = states[0].clone()
+    outs = torch.empty(7, e_sub, n_chan, device=dev)
+    ms = cs.time_ms(lambda: tc.loop_update(taps[0], st, aid, par, outs, 0,
+                                           opts))
+    st = states[0].clone()
+    outs = torch.empty(7, len(taps) * e_sub, n_chan, device=dev)
+    for s, t in enumerate(taps):
+        tc.loop_update(t, st, aid, par, outs, s, opts)
+    sha = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    return {"loop_update e2e ms": ms,
+            "loop_update chain sha256": {
+                "taps": sha(torch.stack(taps)), "state": sha(st),
+                "outs": sha(outs), "par": sha(par)}}
 
 
 def run():
@@ -202,6 +238,10 @@ def main() -> int:
         r["warm stage mean s"] = stages
         print(json.dumps({"which": k, **{x: y for x, y in r.items()
                                          if x != "warm"}}), flush=True)
+    chains = [r["kern"][i]["loop_update chain sha256"]
+              for r in res.values() for i in range(len(r["kern"]))]
+    print(json.dumps({"loop_update chains bit-identical":
+                      all(c == chains[0] for c in chains)}), flush=True)
     for k, text in profiles.items():
         print(f"--- {k} profile (one warm run, tottime) ---\n{text}",
               flush=True)

@@ -13,33 +13,61 @@
 // two launches of a step, which track/graph.py captures as one CUDA graph
 // per chunk.
 //
-// What bounds it on this card: launch latency.  A step moves ~2-4 KB
-// (taps 24 bytes and parameters 20 bytes per epoch and channel, 12 state
-// words and 7 output words per epoch and channel), so its bytes bound is
-// far under 1 us, and its arithmetic is a few hundred float operations
-// per channel.
+// What bounds it on this card: latency.  A step moves ~2-4 KB (taps 24
+// bytes and parameters 20 bytes per epoch and channel, 12 state words and
+// 7 output words per epoch and channel), so its bytes bound is a few
+// nanoseconds, and its arithmetic is ~100 float operations per channel
+// and epoch.  What costs is the chain of dependent steps: a load from
+// device memory, the per-epoch terms (2 hypotf, 2 atanf, 2 divisions),
+// the sums, the filter, and the stores.
 //
-// Design: one thread per channel (one block up to 256 channels), each
-// looping over the step's e_sub epochs in float32 in the plain version's
-// order of operations.  Products and sums go through __fmul_rn /
-// __fadd_rn so that nvcc cannot contract them into FMAs the plain version
-// does not do; a division by a host scalar is a product with its float32
-// reciprocal, and a mean is the sum times float32(1 / e_sub), as PyTorch's
-// CUDA kernels compute them.  Every value that changes during a run is in
-// device memory (the state and aid_offset): a graph that captured this
-// launch reads them at each replay.  The flags active and agc_on are
-// 0.0 / 1.0 rows of the float state.
+// Design: a block covers C channels x e_sub epochs, one thread per
+// (channel, epoch), the channel index fastest (tid = e*C + c), so that the
+// stores of the output rows and the parameters coalesce; the geometry is
+// track/channel.py loop_geometry.  Four phases, three barriers:
+//   1. every load, issued at once: the block's taps into shared memory,
+//      the state and aid_offset by the channel's epoch-0 thread;
+//   2. thread (c, e) computes epoch e's terms and output rows 0-3, and
+//      parks the terms in its own taps slot (behind a barrier, since
+//      thread (c, e+1) reads epoch e's prompt for its FLL pair);
+//   3. the epoch-0 thread of each channel sums its terms in epoch order,
+//      runs the filter, AGC and NCO advance, writes the state and
+//      publishes the loop's new values in shared memory;
+//   4. thread (c, e) writes epoch e's output rows 4-6 and parameters.
+// Every operation keeps its operands and order from one thread walking
+// the epochs: products and sums go through __fmul_rn / __fadd_rn so that
+// nvcc cannot contract them into FMAs the plain version does not do, the
+// sums run in epoch order, a division by a host scalar is a product with
+// its float32 reciprocal, and a mean is the sum times float32(1 / e_sub),
+// as PyTorch's CUDA kernels compute them.  Every value that changes
+// during a run is in device memory (the state and aid_offset): a graph
+// that captured this launch reads them at each replay.  The flags active
+// and agc_on are 0.0 / 1.0 rows of the float state.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kStateRows = 12;  // ChannelState._fields
+constexpr int kTaps = 6;        // taps (and parked terms) per epoch
+constexpr int kPub = 7;         // shared values per channel (Pub)
+constexpr int kMaxThreads = 1024;
 constexpr float kCodeLen = 1023.0f;
 
 enum Row {
   kActive, kCarrierPhase, kCarrierSeed, kCodePhase, kPllAcc, kDllAcc,
   kCarrierFreq, kCodeDev, kPwrAvg, kIpPrev, kQpPrev, kAgcOn
+};
+
+// the parked per-epoch terms, in a taps slot
+enum Term { kPll, kFll, kValid, kEMag, kLMag, kPwr };
+
+// per channel in shared memory: the last epoch's prompt, then what the
+// filter publishes for the epilogue
+enum Pub {
+  kIpLast, kQpLast, kFreq, kDev, kCodeOld, kCodeNew, kCarrierNew
 };
 
 __device__ __forceinline__ float mul(float a, float b) {
@@ -65,79 +93,159 @@ struct Opts {
       nom_step_mod, nom_epoch_mod, scale, agc_lo, agc_hi;
 };
 
-// The next step's track_corr parameters [e_sub, n_chan, 5] of channel c
-// (track/channel.py step_params).
-__device__ void write_params(float* par, int c, float carrier_phase,
+// Epoch e's track_corr parameters of channel c for the next step
+// (track/channel.py step_params), into par [e_sub, n_chan, 5].
+__device__ void write_params(float* par, int c, int e, float carrier_phase,
                              float carrier_freq, float code_phase,
                              float code_dev, const Opts& o) {
   const float delta = mul(carrier_freq, o.inv_fs);
   const float rate = mul(code_dev, o.inv_fs);
-  for (int e = 0; e < o.e_sub; ++e) {
-    const float ef = static_cast<float>(e);
-    const float es = mul(ef, static_cast<float>(o.p));
-    const float chips0 =
-        add(add(code_phase, mul(rate, es)), mul(o.nom_epoch_mod, ef));
-    const float s0p = mul(rem(chips0, kCodeLen), o.scale);
-    const float s0e = mul(rem(add(chips0, o.spacing), kCodeLen), o.scale);
-    const float s0l = mul(rem(sub(chips0, o.spacing), kCodeLen), o.scale);
-    float* q = par + (static_cast<size_t>(e) * o.n_chan + c) * 5;
-    q[0] = rem(add(carrier_phase, mul(delta, es)), 1.0f);
-    q[1] = delta;
-    q[2] = s0p;
-    q[3] = s0e < s0p ? 1.0f : 0.0f;
-    q[4] = s0l > s0p ? 1.0f : 0.0f;
+  const float ef = static_cast<float>(e);
+  const float es = mul(ef, static_cast<float>(o.p));
+  const float chips0 =
+      add(add(code_phase, mul(rate, es)), mul(o.nom_epoch_mod, ef));
+  const float s0p = mul(rem(chips0, kCodeLen), o.scale);
+  const float s0e = mul(rem(add(chips0, o.spacing), kCodeLen), o.scale);
+  const float s0l = mul(rem(sub(chips0, o.spacing), kCodeLen), o.scale);
+  float* q = par + (static_cast<size_t>(e) * o.n_chan + c) * 5;
+  q[0] = rem(add(carrier_phase, mul(delta, es)), 1.0f);
+  q[1] = delta;
+  q[2] = s0p;
+  q[3] = s0e < s0p ? 1.0f : 0.0f;
+  q[4] = s0l > s0p ? 1.0f : 0.0f;
+}
+
+// Phase 1's copy of taps [e_sub, n_chan, 6], channels c0 .. c0+cb-1, into
+// s_taps [e_sub][C][6]: one 16-byte load per thread and pass where the
+// block holds every channel (the slice is then the whole array) and the
+// array is aligned, one float per thread and pass otherwise.
+__device__ __forceinline__ void stage_taps(float* s_taps,
+                                           const float* __restrict__ taps,
+                                           int c0, int cb, int C,
+                                           const Opts& o) {
+  const int total = o.e_sub * cb * kTaps;
+  if (C == o.n_chan && total % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(taps) & 15) == 0) {
+    const float4* src = reinterpret_cast<const float4*>(taps);
+    float4* dst = reinterpret_cast<float4*>(s_taps);
+    for (int i = threadIdx.x; i < total / 4; i += blockDim.x) {
+      dst[i] = src[i];
+    }
+    return;
+  }
+  const int row = cb * kTaps;
+  const float* src = taps + static_cast<size_t>(c0) * kTaps;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int e = i / row, j = i - e * row;
+    s_taps[e * C * kTaps + j] =
+        src[static_cast<size_t>(e) * o.n_chan * kTaps + j];
   }
 }
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kMaxThreads)
 loop_update_kernel(const float* __restrict__ taps, float* __restrict__ state,
                    const float* __restrict__ aid_offset,
                    float* __restrict__ par, float* __restrict__ outs, int s,
-                   int n_rows, Opts o) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= o.n_chan) return;
-  float st[kStateRows];
-#pragma unroll
-  for (int k = 0; k < kStateRows; ++k) st[k] = state[k * o.n_chan + c];
+                   int n_rows, int C, Opts o) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_taps = smem;                          // [e_sub][C][6]
+  float* s_pub = smem + o.e_sub * C * kTaps;     // [7][C]
+  const int cl = threadIdx.x % C, e = threadIdx.x / C;
+  const int c0 = blockIdx.x * C;
+  const int cb = min(C, o.n_chan - c0);
+  const int c = c0 + cl;
+  const bool live = cl < cb;
 
-  if (taps != nullptr) {
-    const float two_pi = static_cast<float>(2.0 * 3.14159265358979323846);
-    const float inv_two_pi = 1.0f / two_pi;
+  if (taps == nullptr) {
+    // the step's parameters from the state as it is (step 0 of a chunk)
+    if (par != nullptr && live) {
+      write_params(par, c, e, state[kCarrierPhase * o.n_chan + c],
+                   state[kCarrierFreq * o.n_chan + c],
+                   state[kCodePhase * o.n_chan + c],
+                   state[kCodeDev * o.n_chan + c], o);
+    }
+    return;
+  }
+
+  // --- 1. every load at once ---------------------------------------------
+  stage_taps(s_taps, taps, c0, cb, C, o);
+  const bool lead = live && e == 0;   // the channel's filter thread
+  float st[kStateRows];
+  float aid_v = 0.0f;
+  if (lead) {
+#pragma unroll
+    for (int k = 0; k < kStateRows; ++k) st[k] = state[k * o.n_chan + c];
+    if (o.carrier_aiding) aid_v = aid_offset[0];
+  }
+  __syncthreads();
+
+  // --- 2. the terms of epoch e -------------------------------------------
+  const size_t plane = static_cast<size_t>(n_rows) * o.n_chan;
+  float* row = outs +
+               (static_cast<size_t>(s) * o.e_sub + e) * o.n_chan + c;
+  float term[kTaps];
+  float ip = 0.0f, qp = 0.0f;
+  if (live) {
     const float inv_fll = 1.0f / static_cast<float>(
                                      2.0 * 3.14159265358979323846 * 1e-3);
+    const float* t = s_taps + (e * C + cl) * kTaps;
+    ip = t[0];
+    qp = t[1];
+    const float em = hypotf(t[2], t[3]), lm = hypotf(t[4], t[5]);
+    // FLL: cross/dot of consecutive 1 ms prompts, the first pair
+    // spanning the step boundary through the stored previous prompt
+    float ipp, qpp;
+    if (e > 0) {
+      ipp = t[-C * kTaps];
+      qpp = t[1 - C * kTaps];
+    } else {
+      ipp = st[kIpPrev];
+      qpp = st[kQpPrev];
+    }
+    // Costas: atan(Q/I), data-bit insensitive
+    term[kPll] = atanf(qp / (fabsf(ip) < 1e-9f ? 1e-9f : ip));
+    const float cross = sub(mul(ipp, qp), mul(qpp, ip));
+    const float dot = add(mul(ipp, ip), mul(qpp, qp));
+    const float pair =
+        mul(atanf(cross / (fabsf(dot) < 1e-9f ? 1e-9f : dot)), inv_fll);
+    term[kValid] = add(mul(ipp, ipp), mul(qpp, qpp)) > 0.0f ? 1.0f : 0.0f;
+    term[kFll] = mul(pair, term[kValid]);
+    term[kEMag] = em;
+    term[kLMag] = lm;
+    term[kPwr] = add(mul(ip, ip), mul(qp, qp));
+    row[0] = ip;
+    row[plane] = qp;
+    row[2 * plane] = em;
+    row[3 * plane] = lm;
+  }
+  __syncthreads();  // every epoch's prompt has been read
+  if (live) {
+    float* t = s_taps + (e * C + cl) * kTaps;
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) t[k] = term[k];
+    if (e == o.e_sub - 1) {
+      s_pub[kIpLast * C + cl] = ip;
+      s_pub[kQpLast * C + cl] = qp;
+    }
+  }
+  __syncthreads();
+
+  // --- 3. the filter, one thread per channel -----------------------------
+  if (lead) {
+    const float two_pi = static_cast<float>(2.0 * 3.14159265358979323846);
+    const float inv_two_pi = 1.0f / two_pi;
     const float inv_e = 1.0f / static_cast<float>(o.e_sub);
     const bool act = st[kActive] > 0.5f;
     float pll_sum = 0.0f, fll_sum = 0.0f, n_valid = 0.0f, e_sum = 0.0f,
           l_sum = 0.0f, pwr_sum = 0.0f;
-    float ipp = st[kIpPrev], qpp = st[kQpPrev];
-    const size_t plane = static_cast<size_t>(n_rows) * o.n_chan;
-    float* row0 = outs + static_cast<size_t>(s) * o.e_sub * o.n_chan + c;
-    for (int e = 0; e < o.e_sub; ++e) {
-      const float* t = taps + (static_cast<size_t>(e) * o.n_chan + c) * 6;
-      const float ip = t[0], qp = t[1];
-      const float em = hypotf(t[2], t[3]), lm = hypotf(t[4], t[5]);
-      // Costas: atan(Q/I), data-bit insensitive
-      pll_sum = add(pll_sum, atanf(qp / (fabsf(ip) < 1e-9f ? 1e-9f : ip)));
-      // FLL: cross/dot of consecutive 1 ms prompts, the first pair
-      // spanning the step boundary through the stored previous prompt
-      const float cross = sub(mul(ipp, qp), mul(qpp, ip));
-      const float dot = add(mul(ipp, ip), mul(qpp, qp));
-      const float pair =
-          mul(atanf(cross / (fabsf(dot) < 1e-9f ? 1e-9f : dot)), inv_fll);
-      const float valid = add(mul(ipp, ipp), mul(qpp, qpp)) > 0.0f
-                              ? 1.0f : 0.0f;
-      fll_sum = add(fll_sum, mul(pair, valid));
-      n_valid = add(n_valid, valid);
-      e_sum = add(e_sum, em);
-      l_sum = add(l_sum, lm);
-      pwr_sum = add(pwr_sum, add(mul(ip, ip), mul(qp, qp)));
-      ipp = ip;
-      qpp = qp;
-      float* r = row0 + static_cast<size_t>(e) * o.n_chan;
-      r[0] = ip;
-      r[plane] = qp;
-      r[2 * plane] = em;
-      r[3 * plane] = lm;
+    for (int k = 0; k < o.e_sub; ++k) {
+      const float* t = s_taps + (k * C + cl) * kTaps;
+      pll_sum = add(pll_sum, t[kPll]);
+      fll_sum = add(fll_sum, t[kFll]);
+      n_valid = add(n_valid, t[kValid]);
+      e_sum = add(e_sum, t[kEMag]);
+      l_sum = add(l_sum, t[kLMag]);
+      pwr_sum = add(pwr_sum, t[kPwr]);
     }
     float pll_err = mul(pll_sum, inv_e);
     const float fll_err = fll_sum / fmaxf(n_valid, 1.0f);
@@ -162,7 +270,7 @@ loop_update_kernel(const float* __restrict__ taps, float* __restrict__ state,
     // offset comes off first
     const float aid =
         o.carrier_aiding
-            ? mul(mul(sub(carrier_freq, aid_offset[0]),
+            ? mul(mul(sub(carrier_freq, aid_v),
                       1.0f / static_cast<float>(1575.42e6)),
                   static_cast<float>(1.023e6))
             : 0.0f;
@@ -191,19 +299,11 @@ loop_update_kernel(const float* __restrict__ taps, float* __restrict__ state,
                : pwr_avg < o.agc_lo ? 0.0f : agc_on;
     }
 
-    // per-epoch outputs: the loop's rates and the code phase at each
-    // epoch's start, from the step's starting phase and its new rate
-    for (int e = 0; e < o.e_sub; ++e) {
-      const float ef = static_cast<float>(e);
-      float* r = row0 + static_cast<size_t>(e) * o.n_chan;
-      r[4 * plane] = carrier_freq;
-      r[5 * plane] = code_dev;
-      r[6 * plane] =
-          rem(add(add(st[kCodePhase],
-                      mul(rate, mul(ef, static_cast<float>(o.p)))),
-                  mul(o.nom_epoch_mod, ef)),
-              kCodeLen);
-    }
+    s_pub[kFreq * C + cl] = carrier_freq;
+    s_pub[kDev * C + cl] = code_dev;
+    s_pub[kCodeOld * C + cl] = st[kCodePhase];
+    s_pub[kCodeNew * C + cl] = code_phase;
+    s_pub[kCarrierNew * C + cl] = carrier_phase;
     st[kCarrierPhase] = carrier_phase;
     st[kCodePhase] = code_phase;
     st[kPllAcc] = pll_acc;
@@ -212,16 +312,34 @@ loop_update_kernel(const float* __restrict__ taps, float* __restrict__ state,
     st[kCodeDev] = code_dev;
     st[kPwrAvg] = pwr_avg;
     if (act) {
-      st[kIpPrev] = ipp;
-      st[kQpPrev] = qpp;
+      st[kIpPrev] = s_pub[kIpLast * C + cl];
+      st[kQpPrev] = s_pub[kQpLast * C + cl];
     }
     st[kAgcOn] = agc_on;
 #pragma unroll
     for (int k = 0; k < kStateRows; ++k) state[k * o.n_chan + c] = st[k];
   }
-  if (par != nullptr) {
-    write_params(par, c, st[kCarrierPhase], st[kCarrierFreq],
-                 st[kCodePhase], st[kCodeDev], o);
+  __syncthreads();
+
+  // --- 4. epoch e's outputs from the new rates, and its parameters -------
+  if (live) {
+    const float carrier_freq = s_pub[kFreq * C + cl];
+    const float code_dev = s_pub[kDev * C + cl];
+    const float ef = static_cast<float>(e);
+    const float rate = mul(code_dev, o.inv_fs);
+    // the code phase at the epoch's start, from the step's starting
+    // phase and its new rate
+    row[4 * plane] = carrier_freq;
+    row[5 * plane] = code_dev;
+    row[6 * plane] =
+        rem(add(add(s_pub[kCodeOld * C + cl],
+                    mul(rate, mul(ef, static_cast<float>(o.p)))),
+                mul(o.nom_epoch_mod, ef)),
+            kCodeLen);
+    if (par != nullptr) {
+      write_params(par, c, e, s_pub[kCarrierNew * C + cl], carrier_freq,
+                   s_pub[kCodeNew * C + cl], code_dev, o);
+    }
   }
 }
 
@@ -229,20 +347,30 @@ loop_update_kernel(const float* __restrict__ taps, float* __restrict__ state,
 
 // taps [e_sub, n_chan, 6] or null (write par only); state [12, n_chan] in
 // place; aid_offset [1]; par [e_sub, n_chan, 5] or null; outs
-// [7, n_rows, n_chan] (rows s*e_sub ... written).
+// [7, n_rows, n_chan] (rows s*e_sub ... written).  The geometry is
+// track/channel.py loop_geometry's: blocks of chans_per_block channels x
+// e_sub epochs, smem_bytes of dynamic shared memory (within the default
+// 48 KB, so nothing is set on the function inside a graph capture).
 extern "C" int loop_update_launch(
     const float* taps, float* state, const float* aid_offset, float* par,
     float* outs, int s, int n_rows, int e_sub, int n_chan, int p,
     int carrier_aiding, int agc, float fs, float pll_k1, float pll_k2,
     float dll_k1, float dll_k2, float fll_k2pi, float spacing,
     float nom_step_mod, float nom_epoch_mod, float scale, float agc_lo,
-    float agc_hi, void* stream) {
+    float agc_hi, int chans_per_block, int blocks, int threads,
+    int smem_bytes, void* stream) {
+  if (chans_per_block < 1 || threads != chans_per_block * e_sub ||
+      threads > kMaxThreads || blocks * chans_per_block < n_chan ||
+      smem_bytes < static_cast<int>(sizeof(float)) * chans_per_block *
+                       (kTaps * e_sub + kPub) ||
+      smem_bytes > 48 * 1024) {
+    return cudaErrorInvalidValue;
+  }
   Opts o{e_sub, n_chan, p, carrier_aiding, agc, 1.0f / fs, pll_k1, pll_k2,
          dll_k1, dll_k2, fll_k2pi, spacing, nom_step_mod, nom_epoch_mod,
          scale, agc_lo, agc_hi};
-  const int threads = n_chan < 256 ? ((n_chan + 31) / 32) * 32 : 256;
-  loop_update_kernel<<<(n_chan + threads - 1) / threads, threads, 0,
+  loop_update_kernel<<<blocks, threads, smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
-      taps, state, aid_offset, par, outs, s, n_rows, o);
+      taps, state, aid_offset, par, outs, s, n_rows, chans_per_block, o);
   return cudaGetLastError();
 }

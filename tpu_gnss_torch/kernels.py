@@ -55,7 +55,7 @@ _SIGNATURES = {
     "track_corr_launch": [_P] * 10 + [_I] * 6 + [_P],
     "mix_packed_launch": [_P] * 3 + [_I] + [_F] * 2 + [_I] * 2 + [_P],
     "corr_reduce_launch": [_P] * 10 + [_I] * 7 + [_P],
-    "loop_update_launch": [_P] * 5 + [_I] * 7 + [_F] * 12 + [_P],
+    "loop_update_launch": [_P] * 5 + [_I] * 7 + [_F] * 12 + [_I] * 4 + [_P],
 }
 # the kernels' names, as LAUNCHES counts them
 KERNELS = tuple(k.removesuffix("_launch") for k in _SIGNATURES)

@@ -496,6 +496,18 @@ class Receiver:
         PVT run in-stream at the solve cadence (the reference's 4 s
         SolveTask loop, c/solve.cpp:297-317) and each fix is delivered as
         it is computed; fixes of the end-of-stream pass follow.
+
+        Re-acquisition departs from the reference's schedule: a
+        background search is applied at the chunk boundary after its
+        launch, the loop waiting for it there, where the reference
+        applies it at the first boundary after it is done
+        (tpu_gnss/receiver.py:1037).  Left to finish "when done", a
+        search on a card that tracks at ~100x realtime lands many chunks
+        later, at an epoch that depends on thread timing, and the
+        code-creep propagation over that gap can miss lock.  So the
+        port's decisions do not depend on how long a search takes
+        (tests/test_torch_scenarios.py::
+        test_reacquisition_applies_at_the_boundary_after_launch).
         """
         cfg = self.cfg
         self._searcher_directed = None

@@ -32,6 +32,7 @@ import torch
 from .. import kernels
 from ..acquire.folded import fft_len_for_period
 from ..constants import CHIP_RATE_HZ, CODE_LEN_CHIPS, L1_HZ
+from ..device import resolve_device
 from ..ops import mxu_track
 from ..ops.mxu_corr import four_step_np, split_nf
 from ..signal import cacode
@@ -188,22 +189,50 @@ def channel_code_tables(prns, n_chan: int) -> np.ndarray:
     return out
 
 
-def code_spectra_np(prns, n_chan: int, fs: float) -> np.ndarray:
-    """``[n_chan, NF]`` complex64 correlator spectra
-    ``conj(FFT(replica)) * (1 + e^{j2πkP/NF})`` (the wrap of the padded
-    linear correlation folded in); unused channels get PRN 1.  Copied
-    from tpu_gnss/track/channel.py:580-598."""
+def _code_replicas(prns, n_chan: int, fs: float
+                   ) -> tuple[np.ndarray, int, int]:
+    """``(replicas [n_chan, P] float64, P, NF)`` of the correlator
+    spectra: each channel's C/A code resampled to one 1 ms epoch; unused
+    channels get PRN 1."""
     p = int(round(fs * 1e-3))
-    nf = fft_len_for_period(p)
     tbl = cacode.code_table()
     reps = np.zeros((n_chan, p), np.float64)
     for ch in range(n_chan):
         prn = prns[ch] if ch < len(prns) else 1
         reps[ch] = cacode.resample(tbl[prn - 1], fs, p)
+    return reps, p, fft_len_for_period(p)
+
+
+def code_spectra_np(prns, n_chan: int, fs: float) -> np.ndarray:
+    """``[n_chan, NF]`` complex64 correlator spectra
+    ``conj(FFT(replica)) * (1 + e^{j2πkP/NF})`` (the wrap of the padded
+    linear correlation folded in); unused channels get PRN 1.  Copied
+    from tpu_gnss/track/channel.py:580-598."""
+    reps, p, nf = _code_replicas(prns, n_chan, fs)
     spec = np.conj(np.fft.fft(reps, n=nf, axis=-1))
     k = np.arange(nf)
     wrap = 1.0 + np.exp(2j * np.pi * k * (p / nf))
     return (spec * wrap[None, :]).astype(np.complex64)
+
+
+def code_spectra(prns, n_chan: int, fs: float, device
+                 ) -> tuple[torch.Tensor, int]:
+    """``(spec [n_chan, NF] complex64 on device, NF)``: the correlator
+    spectra of :func:`code_spectra_np` built on ``device`` with the
+    reference's float32 arithmetic (tpu_gnss/track/channel.py:601-630):
+    float32 replicas, a complex64 FFT, and the wrap ``1 + e^{j2πkP/NF}``
+    from float32 angles.  Unused channels get PRN 1.  The receiver keeps
+    :func:`code_spectra_np`, as the reference's does."""
+    dev = resolve_device(device)
+    reps, p, nf = _code_replicas(prns, n_chan, fs)
+    r = torch.from_numpy(reps.astype(np.float32)).to(dev)
+    spec = torch.conj(torch.fft.fft(r.to(torch.complex64), n=nf, dim=-1))
+    # the reference's 2π·k·(P/NF) as its jit runs it: XLA folds the two
+    # constants into one float32 factor
+    step = np.float32(2.0 * np.pi) * np.float32(p / nf)
+    ang = torch.arange(nf, dtype=torch.float32, device=dev) * float(step)
+    wrap = 1.0 + torch.complex(torch.cos(ang), torch.sin(ang))
+    return spec * wrap[None, :], nf
 
 
 # The reference's einsum-path helpers (_dft_tables_np, _tap_vectors_np and
@@ -371,6 +400,37 @@ def loop_update_plain(taps: Optional[torch.Tensor], state: torch.Tensor,
         par.copy_(step_params(state, opts))
 
 
+# loop_update's launch: blocks of up to LOOP_BLOCK_THREADS threads, one
+# per (channel, epoch), unless one channel's epochs need more; a block
+# takes at most LOOP_MAX_THREADS (the card's limit)
+LOOP_BLOCK_THREADS = 256
+LOOP_MAX_THREADS = 1024
+
+
+def loop_geometry(n_chan: int, e_sub: int) -> tuple[int, int, int, int]:
+    """``(chans_per_block, blocks, threads, smem_bytes)`` of the
+    ``loop_update`` launch for ``n_chan`` channels of ``e_sub`` epochs.
+
+    A block covers ``chans_per_block`` = C channels x ``e_sub`` epochs,
+    one thread per (channel, epoch), thread ``e*C + c`` for channel
+    ``blockIdx*C + c`` (threads past ``n_chan`` idle); the blocks are
+    balanced.  Shared memory: the block's taps (6 floats per thread) and
+    7 floats per channel, within the default 48 KB.  A pure function of
+    its arguments, so a captured graph replays the same launch.  Raises
+    ``ValueError`` where one channel's epochs exceed a block.
+    """
+    if n_chan < 1 or e_sub < 1:
+        raise ValueError(f"loop_update: n_chan {n_chan} and e_sub {e_sub} "
+                         "must be positive")
+    if e_sub > LOOP_MAX_THREADS:
+        raise ValueError(f"loop_update: e_sub {e_sub} needs more than "
+                         f"{LOOP_MAX_THREADS} threads for one channel")
+    cap = max(1, LOOP_BLOCK_THREADS // e_sub)
+    blocks = -(-n_chan // cap)
+    chans = -(-n_chan // blocks)
+    return chans, blocks, chans * e_sub, 4 * chans * (6 * e_sub + 7)
+
+
 def _loop_check(taps, state, aid_offset, par, outs, s, opts) -> None:
     e_sub = opts.e_sub
     if state.ndim != 2 or state.shape[0] != len(ChannelState._fields):
@@ -415,7 +475,7 @@ def loop_update(taps: Optional[torch.Tensor], state: torch.Tensor,
         ``s`` writes rows ``s*e_sub`` to ``(s+1)*e_sub - 1``.
 
     A CPU tensor runs :func:`loop_update_plain`; a CUDA tensor launches
-    ``csrc/loop_update.cu`` or raises.
+    ``csrc/loop_update.cu`` at :func:`loop_geometry` or raises.
     """
     dev = state.device
     if dev.type == "cpu":
@@ -431,6 +491,7 @@ def loop_update(taps: Optional[torch.Tensor], state: torch.Tensor,
                               or not a.is_contiguous()):
             raise ValueError(f"loop_update: {name} must be a contiguous "
                              f"float32 tensor on {dev}")
+    geometry = loop_geometry(state.shape[1], opts.e_sub)
     ptr = lambda a: None if a is None else a.data_ptr()
     agc = opts.agc_thresholds
     with torch.cuda.device(dev):
@@ -442,7 +503,8 @@ def loop_update(taps: Optional[torch.Tensor], state: torch.Tensor,
             int(agc is not None), opts.fs, opts.pll_k1, opts.pll_k2,
             opts.dll_k1, opts.dll_k2, opts.fll_k2pi, opts.corr_spacing,
             opts.nom_step_mod, opts.nom_epoch_mod,
-            opts.period / CODE_LEN_CHIPS, *(agc or (0.0, 0.0)), stream)
+            opts.period / CODE_LEN_CHIPS, *(agc or (0.0, 0.0)), *geometry,
+            stream)
     kernels.check("loop_update", err)
     kernels.launched("loop_update")
 
