@@ -162,7 +162,22 @@ prints no result line):
    run again, each wall with the receiver's stage seconds, and the CUDA
    kernels and copies per 10 ms step of the e2e receiver (at most 3.5:
    two in the step, the rest the chunk's copies and the search); (d)
-   ``loop_update``'s time, launches per second of signal and bound.
+   ``loop_update``'s time, launches per second of signal and bound; (e)
+   the receiver's prewarm and the process's shared trackers: the shared
+   trackers and the record of the prewarms that ran dropped (so the next
+   receiver of each geometry is the first of the process to ask), then
+   phase 3's e2e 20 s 1-bit capture and
+   phase 9's hackrf 4 s int8 scene through two fresh receivers each,
+   with ``TPU_GNSS_TORCH_TRACE_COLD`` set, each run's tracker
+   counts (eager chunks, captures and replays of the loop), prewarm and
+   wait seconds, wall and the device memory reserved beyond the phase's
+   start (``torch.cuda.memory_reserved`` after ``empty_cache``); it fails
+   if a loop ran a chunk eagerly or captured, if the first receiver's
+   prewarm did not capture or the second's did, if a result (detections,
+   channel histories, fixes) is not bit-identical to a receiver's on a
+   private, un-prewarmed ``GraphedTracker``, or if a gate of phases 3
+   and 9 misses.  Phase 3 prints its ``[cold]`` lines too: the first
+   receiver of the process.
 
 Phase 2 also holds ``fold_corr_reduce`` at the e2e shape with 5 and 11 SVs
 (the directed search's SV counts).  Phases 8-18 run before 6-7, inside
@@ -965,13 +980,22 @@ def iq_link_run(label, cfg, path, fmt, true, offset_hz, duration, link, dev,
     with counting_uploads() as sent:
         res, wall, launches, xfer_s = drive(
             label, recv, IQFileSource(path, cfg.fs, fmt), duration)
+    det = iq_gates(label, recv, res, launches, true, offset_hz,
+                   f", {sum(sent) / duration / 1e6:.3f} MB uploaded per "
+                   "second of signal")
+    return dict(det=det, res=res, wall=wall, launches=launches,
+                transfer_s=xfer_s, bytes_per_s=sum(sent) / duration)
+
+
+def iq_gates(label, recv, res, launches, true, offset_hz, note=""):
+    """:func:`iq_link_run`'s gates on one run; returns the detected
+    PRNs."""
     det = sorted(d["prn"] for d in res.detections)
     locked = locked_prns(res)
     want_off = offset_hz + float(np.median(
         [true[p - 2] for p in det if 2 <= p < 2 + len(true)]))
     log(f"{label}: {len(det)} detections {det}, locked {locked}, if_offset "
-        f"estimate {recv._if_offset:.1f} Hz (want {want_off:.1f}), "
-        f"{sum(sent) / duration / 1e6:.3f} MB uploaded per second of signal")
+        f"estimate {recv._if_offset:.1f} Hz (want {want_off:.1f}){note}")
     need_launched(label, launches, ("fold_corr_reduce", "track_corr",
                                     "loop_update"))
     if len(det) < 4 or not set(det) <= set(locked):
@@ -980,8 +1004,7 @@ def iq_link_run(label, cfg, path, fmt, true, offset_hz, duration, link, dev,
     if not abs(recv._if_offset - want_off) < 250.0:
         fail(f"{label}: if_offset estimate {recv._if_offset} Hz, want "
              f"{want_off} +- 250 Hz")
-    return dict(det=det, res=res, wall=wall, launches=launches,
-                transfer_s=xfer_s, bytes_per_s=sum(sent) / duration)
+    return det
 
 
 def iq_preset_run(preset, duration, offset_hz, signed, links, tmpdir, dev):
@@ -2730,6 +2753,124 @@ def retime_runs(cfg, path_e2e, path_e2e8, cfg_n, path_n, scene9, scene10,
     return out, total / 400.0
 
 
+def same_result(a, b) -> bool:
+    """Two receiver results bit for bit: detections, each channel's
+    record and histories, and the fixes."""
+    if a.detections != b.detections or len(a.channels) != len(b.channels):
+        return False
+    for x, y in zip(a.channels, b.channels):
+        if ((x.ch, x.prn, x.start_epoch, x.n_epochs, x.lost)
+                != (y.ch, y.prn, y.start_epoch, y.n_epochs, y.lost)):
+            return False
+        if not all(np.array_equal(x.hist(k), y.hist(k))
+                   for k in ("ip", "qp", "cf", "caf", "chips")):
+            return False
+    fix = lambda res: [(s.snap_epoch, s.x, s.y, s.z, s.t_rx)
+                       for s in res.solutions]
+    return fix(a) == fix(b)
+
+
+def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
+    """Phase 18e: the receiver's prewarm and the process's shared
+    trackers (module docstring).  Returns, per geometry, the two
+    receivers' tracker counts, prewarm and wait seconds, walls and the
+    device memory held, and the private tracker's run."""
+    from tpu_gnss_torch.io.stream import FileSource1Bit, IQFileSource
+    from tpu_gnss_torch import receiver
+    from tpu_gnss_torch.receiver import TRACE_COLD_ENV, Receiver
+    from tpu_gnss_torch.track import graph
+    cfg9, path9, fmt9, true9 = scene9
+
+    def gates_e2e(label, recv, res, launches):
+        decoded = [r for r in res.channels if r.eph.valid()]
+        err = fix_error(res, rx)
+        log(f"{label}: {len(res.detections)} detections, {len(decoded)} "
+            f"ephemerides, {len(res.solutions)} fixes, final error "
+            f"{err:.2f} m")
+        need_launched(label, launches, RECEIVER_KERNELS)
+        if len(res.detections) < 4 or len(decoded) < 4 or not err < 60.0:
+            fail(f"{label}: fewer than 4 detections or ephemerides, or "
+                 f"final fix error {err} m (limit 60 m)")
+
+    def gates_hackrf(label, recv, res, launches):
+        det = iq_gates(label, recv, res, launches, true9, 25e3)
+        if det != runs9["int8"]["det"]:
+            fail(f"{label}: PRNs {det}, phase 9 {runs9['int8']['det']}")
+
+    cases = (("e2e 1-bit 20 s", cfg, lambda: FileSource1Bit(path_e2e, cfg),
+              20.0, gates_e2e),
+             ("hackrf int8 4 s", cfg9,
+              lambda: IQFileSource(path9, cfg9.fs, fmt9), 4.0, gates_hackrf))
+    # the earlier phases' shared trackers (with their graphs) and the
+    # prewarms' record go: the next receiver of each geometry is the first
+    # of the process to ask
+    graph._SHARED.clear()
+    receiver._WARMED.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    out = {}
+    os.environ[TRACE_COLD_ENV] = "1"
+    try:
+        for label, c, src, duration, gates in cases:
+            runs, results = [], []
+            for i in (1, 2):
+                recv = Receiver(c, device=dev)
+                before = recv._tracker.counts()
+                name = f"prewarm {label}, receiver {i}"
+                res, wall, launches, _ = drive(name, recv, src(), duration)
+                after = recv._tracker.counts()
+                loop = {k: after[k] - before[k] for k in after}
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                held = (torch.cuda.memory_reserved(dev) - reserved0) / 1e6
+                st = dict(recv.prewarm_stats)
+                log(f"{name}: loop eager chunks {loop['eager']}, captures "
+                    f"{loop['captures']}, replays {loop['replays']}; "
+                    f"prewarms: search {st['acq_prewarm_s']:.4f} s "
+                    f"(searched {st['acq_searched']}), seeder "
+                    f"{st['seeder_prewarm_s']:.4f} s (ran "
+                    f"{st['seeder_ran']}), tracker "
+                    f"{st['track_prewarm_s']:.4f} s (captured "
+                    f"{st['track_captured']}), the loop's wait "
+                    f"{st['track_wait_s']:.4f} s; wall {wall:.4f} s; device "
+                    f"memory reserved beyond the phase's start {held:.1f} "
+                    "MB")
+                gates(name, recv, res, launches)
+                if loop["eager"] or loop["captures"]:
+                    fail(f"{name}: the loop ran {loop['eager']} chunks "
+                         f"eagerly and captured {loop['captures']}")
+                if st["track_captured"] != (i == 1):
+                    fail(f"{name}: the tracker prewarm captured "
+                         f"{st['track_captured']} (want {i == 1})")
+                runs.append(dict(loop=loop, stats=st, wall=wall,
+                                 held_mb=held))
+                results.append(res)
+            ref = Receiver(c, device=dev)
+            ref._tracker = graph.GraphedTracker(
+                fs=c.fs, pll_gains=ref.pll_gains, dll_gains=ref.dll_gains,
+                epochs_per_step=ref.epochs_per_step,
+                agc_thresholds=ref.agc_thresholds, device=dev)
+            ref._prewarm_track = lambda *args: None
+            res_ref, wall_ref, _, _ = drive(
+                f"prewarm {label}, private un-prewarmed tracker", ref, src(),
+                duration)
+            counts_ref = ref._tracker.counts()
+            same = [same_result(r, res_ref) for r in results]
+            log(f"prewarm {label}: private tracker eager chunks "
+                f"{counts_ref['eager']}, captures {counts_ref['captures']}, "
+                f"replays {counts_ref['replays']}, wall {wall_ref:.4f} s; "
+                f"receivers 1 and 2 bit-identical to it: {same}")
+            if not all(same):
+                fail(f"prewarm {label}: a shared-tracker run differs from "
+                     "the private tracker's")
+            out[label] = dict(runs=runs, private=dict(counts=counts_ref,
+                                                      wall=wall_ref))
+    finally:
+        os.environ.pop(TRACE_COLD_ENV, None)
+    return out
+
+
 def main() -> int:
     with contextlib.ExitStack() as stack:
         return run_phases(stack)
@@ -2839,7 +2980,12 @@ def run_phases(stack: contextlib.ExitStack) -> int:
                              snr_threshold=17.0, num_chans=12)
         path_e2e, path_e2e8, path_e2e_iq, rx = build_capture(
             cfg, 20.0, tmp, "e2e", iq8=True)
-        res, wall, launches = run_receiver(cfg, path_e2e, 20.0, "e2e")
+        # the process's first receiver prints its cold start
+        os.environ["TPU_GNSS_TORCH_TRACE_COLD"] = "1"
+        try:
+            res, wall, launches = run_receiver(cfg, path_e2e, 20.0, "e2e")
+        finally:
+            os.environ.pop("TPU_GNSS_TORCH_TRACE_COLD", None)
         decoded = [r for r in res.channels if r.eph.valid()]
         err = fix_error(res, rx)
         log(f"e2e: {len(res.detections)} detections "
@@ -2955,6 +3101,7 @@ def run_phases(stack: contextlib.ExitStack) -> int:
             f"{loop_e2e['plain_ms'] * 1e3:.2f} us, "
             f"{loop_bound_text(loop_e2e)}, launch floor "
             f"{floor_ms * 1e3:.2f} us")
+        prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev)
         log(f"phase 18: {time.perf_counter() - t18:.1f} s on {smi}")
 
     # --- phase 6: the folded search API at the nottingham geometry ------

@@ -6,7 +6,8 @@ holds it against eager ``track_epochs`` there).  Here, on the CPU, it is
 channel starts and stops, a changed oscillator offset, new slot PRNs and
 a partial tail chunk, it gives chained ``track_epochs`` calls' results
 bit for bit; its outputs never alias another call's or another
-tracker's; a tracker for a card refuses CPU tensors.
+tracker's; two chains interleaved on one shared tracker give what each
+gives on a private one; a tracker for a card refuses CPU tensors.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from tpu_gnss_torch.signal import synth
 from tpu_gnss_torch.track import channel as tc
-from tpu_gnss_torch.track.graph import GraphedTracker
+from tpu_gnss_torch.track.graph import GraphedTracker, shared_tracker
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FS = 2.048e6
@@ -45,13 +46,20 @@ def _code(prns, gather):
     return None, torch.from_numpy(tc.code_spectra_np(prns, N_CHAN, FS))
 
 
-def _chain(track, gather):
+def _chain(track, gather, seed=0):
     """Five chunks (4 + 4 + 4 + 4 steps, then a 2.5-step tail) with the
     bank edited between them as the receiver edits it."""
+    steps = list(_chain_steps(track, gather, seed))
+    return steps[-1][0], [out for _, out in steps]
+
+
+def _chain_steps(track, gather, seed=0):
+    """:func:`_chain` one chunk at a time: yields each chunk's state and
+    outputs (samples seeded from ``seed``)."""
     state = tc.start_channels(tc.init_state(N_CHAN, "cpu"), [0, 1],
                               [1240.0, -2095.0], [500.25, 12.75],
                               [1234.0, -2100.0])
-    prns, aid, outs = [7, 21, 1, 1], 0.0, []
+    prns, aid = [7, 21, 1, 1], 0.0
     for k, steps in enumerate((4, 4, 4, 4, 2.5)):
         if k == 1:      # a new SV in slot 2
             prns[2] = 5
@@ -64,10 +72,9 @@ def _chain(track, gather):
             state = tc.start_channels(state, [3], [-440.0], [900.0],
                                       [-450.0])
         tables, ffts = _code(prns, gather)
-        state, out = track(_samples(steps, seed=k), state, tables, ffts,
-                           aid)
-        outs.append(out)
-    return state, outs
+        state, out = track(_samples(steps, seed=seed + k), state, tables,
+                           ffts, aid)
+        yield state, out
 
 
 @pytest.mark.parametrize("gather", [False, True], ids=["fft", "gather"])
@@ -110,6 +117,30 @@ def test_trackers_never_alias_outputs():
             assert torch.equal(t, w)
     for t, w in zip(flat[1], keep[0]):
         assert torch.equal(t, w)
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["fft", "gather"])
+def test_interleaved_chains_on_a_shared_tracker(gather):
+    """Two chains on different samples, chunk by chunk in turns through
+    one shared tracker, equal each chain run alone on a private tracker,
+    bit for bit, and no output of one shares storage with the other's."""
+    shared = shared_tracker(**_opts(), device="cpu")
+    assert shared_tracker(**_opts(), device="cpu") is shared
+    runs = list(zip(_chain_steps(shared, gather, seed=0),
+                    _chain_steps(shared, gather, seed=10)))
+    for i, seed in enumerate((0, 10)):
+        st_p, outs_p = _chain(GraphedTracker(**_opts(), device="cpu"),
+                              gather, seed)
+        st_s, outs_s = runs[-1][i][0], [r[i][1] for r in runs]
+        for a, b in zip(st_s, st_p):
+            assert torch.equal(a, b)
+        for os_, op in zip(outs_s, outs_p, strict=True):
+            for a, b in zip(os_, op):
+                assert torch.equal(a, b)
+    ptrs = [{t.untyped_storage().data_ptr()
+             for r in runs for part in r[i] for t in part} for i in (0, 1)]
+    assert not ptrs[0] & ptrs[1]
+    assert not torch.equal(runs[0][0][1].ip, runs[0][1][1].ip)
 
 
 def test_card_tracker_refuses_cpu_tensors():

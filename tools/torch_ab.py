@@ -1,6 +1,7 @@
 """Parent-vs-change comparison of the PyTorch port on one CUDA card.
 
-    python3 tools/torch_ab.py PARENT_TREE CHANGE_TREE [--warm N] [--out FILE]
+    python3 tools/torch_ab.py PARENT_TREE CHANGE_TREE [--warm N] [--cold N]
+                              [--out FILE]
 
 Each tree is a checkout holding ``tpu_gnss_torch/`` (for the parent,
 ``git archive HEAD`` unpacked into a git-ignored directory).  Each tree
@@ -22,12 +23,20 @@ commands in turns, so that a slow spell of the host falls on both:
   kernels agree bit for bit).  Device times per call, calls enqueued
   back to back behind a sleep kernel (``chip_smoke.time_ms``).
 * ``run``: the receiver on the 20 s e2e scene (written once, before the
-  workers start): wall seconds of one ``process_source`` and its host
-  seconds per receiver stage (``utils.metrics.METRICS``).  The first run
-  of each worker is its cold run; then ``--warm`` pairs, parent first in
-  even pairs and change first in odd ones.
+  workers start), a new ``Receiver`` each run: wall seconds of one
+  ``process_source``, its host seconds per receiver stage
+  (``utils.metrics.METRICS``), the chunks its tracking loop ran eagerly
+  and captured (the tracker's ``counts()``, or, in a tree whose trackers
+  have none, the keys its private tracker saw and captured) and the
+  receiver's ``prewarm_stats`` where it has them.  The first run of each
+  worker is its cold run; then ``--warm`` pairs, parent first in even
+  pairs and change first in odd ones.
 * ``prof``: one more warm run under ``cProfile``, its 25 functions of
   most own time.
+* ``--cold N``: then N fresh worker processes per tree, in turns (parent
+  first in even rounds), each running ``run`` once and exiting: the
+  first ``process_source`` of a process that has only loaded the kernel
+  library, as a command-line run's.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line per
 tree, whether every ``loop_update`` chain of both trees hashed the same,
@@ -126,16 +135,28 @@ def loop_kern():
                 "outs": sha(outs), "par": sha(par)}}
 
 
+def tracker_counts(recv):
+    tr = recv._tracker
+    if hasattr(tr, "counts"):
+        return tr.counts()
+    # a private tracker without counters ran each key it saw once eagerly
+    return {"eager": len(tr._seen), "captures": len(tr._graphs)}
+
+
 def run():
     recv = Receiver(cfg, device="cuda")
     METRICS.timings.clear()
+    before = tracker_counts(recv)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = recv.process_source(FileSource1Bit(capture, cfg))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    after = tracker_counts(recv)
     return {"wall s": wall, "fixes": len(out.solutions),
-            "stage s": {k: sum(v) for k, v in METRICS.timings.items()}}
+            "stage s": {k: sum(v) for k, v in METRICS.timings.items()},
+            "tracker": {k: v - before.get(k, 0) for k, v in after.items()},
+            "prewarm": getattr(recv, "prewarm_stats", None)}
 
 
 def prof():
@@ -192,6 +213,7 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--warm", type=int, default=6)
+    ap.add_argument("--cold", type=int, default=0)
     ap.add_argument("--out")
     a = ap.parse_args()
     import torch
@@ -206,7 +228,8 @@ def main() -> int:
     from tpu_gnss_torch.signal import scene
     trees = {"parent": os.path.abspath(a.parent),
              "change": os.path.abspath(a.change)}
-    res = {k: {"tree": t, "kern": [], "warm": []} for k, t in trees.items()}
+    res = {k: {"tree": t, "kern": [], "warm": [], "cold runs": []}
+           for k, t in trees.items()}
     with tempfile.TemporaryDirectory() as tmp:
         capture = os.path.join(tmp, "e2e.bin")
         iq, _, _ = scene.build_scene(duration=20.0, fs=2.048e6)
@@ -227,6 +250,14 @@ def main() -> int:
         finally:
             for w in workers.values():
                 w.close()
+        for i in range(a.cold):
+            for k in (("parent", "change") if i % 2 == 0
+                      else ("change", "parent")):
+                w = Worker(trees[k], capture)
+                try:
+                    res[k]["cold runs"].append(w.ask("run"))
+                finally:
+                    w.close()
     for k, r in res.items():
         walls = [w["wall s"] for w in r["warm"]]
         stages = {}
@@ -234,10 +265,20 @@ def main() -> int:
             for s, v in w["stage s"].items():
                 stages[s] = stages.get(s, 0.0) + v / len(r["warm"])
         r["warm wall s"] = walls
-        r["warm wall median s"] = statistics.median(walls)
+        if walls:
+            r["warm wall median s"] = statistics.median(walls)
+        if len(walls) > 1:
+            q = statistics.quantiles(walls, n=4)
+            r["warm wall quartiles s"] = [q[0], q[2]]
+        r["warm tracker counts"] = [w["tracker"] for w in r["warm"]]
+        if r["cold runs"]:
+            r["cold run walls s"] = [w["wall s"] for w in r["cold runs"]]
+            r["cold run median s"] = statistics.median(
+                r["cold run walls s"])
         r["warm stage mean s"] = stages
         print(json.dumps({"which": k, **{x: y for x, y in r.items()
-                                         if x != "warm"}}), flush=True)
+                                         if x not in ("warm", "cold runs")}}),
+              flush=True)
     chains = [r["kern"][i]["loop_update chain sha256"]
               for r in res.values() for i in range(len(r["kern"]))]
     print(json.dumps({"loop_update chains bit-identical":

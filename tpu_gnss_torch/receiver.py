@@ -41,6 +41,22 @@ axis) the same loop runs its heavy stages on the mesh: cold and
 re-acquisition Doppler-sharded through the fused kernel, the tracking
 bank channel-sharded.  The link, the 1-bit mix, the channel state the
 host edits and the fetches stay on ``device``.
+
+Prewarm (tpu_gnss/receiver.py:421-456, 673-746): at the start of
+:meth:`Receiver.process_source`, while the prefetch thread reads the
+first chunk, the caller's thread runs the cold search once on an
+all-zero head, and a prewarm thread warms the channel seeder and builds
+the tracker's full-chunk CUDA graph, which the first tracking chunk
+waits for; every prewarm error is raised.  (The reference runs the
+search prewarm on a thread of its own; on an H100 a fresh process's
+first search took 1.4-2.3x as long on a new thread as on the caller's,
+PERF.md §6.)  Without a mesh the tracker is
+:func:`tpu_gnss_torch.track.graph.shared_tracker`'s, shared by every
+receiver of the process with the same options and device, so only the
+first of them builds its graphs; likewise only the first receiver of a
+process to run a given search or seeder warms it.  With
+``TPU_GNSS_TORCH_TRACE_COLD`` set (and not "0") the cold start prints
+its ``[cold]`` timing lines.
 """
 
 from __future__ import annotations
@@ -48,7 +64,9 @@ from __future__ import annotations
 import bisect
 import copy
 import dataclasses
+import os
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
@@ -56,7 +74,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .acquire.folded import FoldedSearcher
+from .acquire.folded import FoldedSearcher, fft_len_for_period
 from .acquire.search import mix_baseband
 from .cli.nmea_out import sat_geometry
 from .config import ReceiverConfig
@@ -70,7 +88,7 @@ from .nav.ephemeris import Ephemeris, resolve_week
 from .ops.onebit import mix_packed, words_to_tensor
 from .pvt import solve as pvt
 from .track import channel as tc
-from .track.graph import GraphedTracker
+from .track.graph import shared_tracker
 from .track.quality import cn0_nwpr, pll_lock_metric
 from .utils import xfer
 from .utils.metrics import METRICS
@@ -81,6 +99,59 @@ _HIST_KEYS = ("ip", "qp", "cf", "caf", "chips")
 #: link names of ``Receiver(transfer_dtype=)``, as the reference's
 TRANSFER_DTYPES = ("int8", "int4", "int2", "float32")
 ACQ_ENGINES = ("auto", "mxu", "xla")
+#: environment variable that turns on the ``[cold]`` start-up timing lines
+#: (the reference's ``TPU_GNSS_TRACE_COLD``)
+TRACE_COLD_ENV = "TPU_GNSS_TORCH_TRACE_COLD"
+
+
+def _trace_cold() -> bool:
+    return os.environ.get(TRACE_COLD_ENV, "") not in ("", "0")
+
+
+# the prewarms that ran in this process, by key: what a prewarm warms (the
+# kernel library, the cached tables, the CUDA modules and FFT plans of its
+# ops) is the process's, so a later receiver's prewarm of the same key has
+# nothing left to build
+_WARMED: set = set()
+_WARMED_LOCK = threading.Lock()
+
+
+def _warm_once(key, body) -> bool:
+    """Run ``body`` unless this process has run the prewarm ``key``;
+    return whether it ran."""
+    with _WARMED_LOCK:
+        if key in _WARMED:
+            return False
+    body()
+    with _WARMED_LOCK:
+        _WARMED.add(key)
+    return True
+
+
+class _Prewarm(threading.Thread):
+    """A prewarm body started in a daemon thread: its error is kept for
+    :meth:`wait`, which re-raises it."""
+
+    def __init__(self, body):
+        super().__init__(daemon=True)
+        self._body = body
+        self.error = None
+        self.start()
+
+    def run(self) -> None:
+        try:
+            self._body()
+        except BaseException as exc:   # re-raised by wait()
+            self.error = exc
+
+    def wait(self) -> float:
+        """Block until the body is done, re-raise its error, and return
+        the seconds this call waited."""
+        t0 = time.perf_counter()
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return time.perf_counter() - t0
 
 
 # ChannelRecord and ReceiverResult: copied from tpu_gnss/receiver.py:55-257;
@@ -368,6 +439,8 @@ class Receiver:
                            else float(if_offset_hz))
         self._if_offset_locked = if_offset_hz != "auto"
         self._tables_cache = None
+        # the last process_source's prewarm seconds
+        self.prewarm_stats: dict = {}
         # mesh mode: Doppler-sharded searches and a channel-sharded bank
         # over the mesh's "dop" axis, NAV and PVT on the host
         self.mesh = mesh
@@ -387,9 +460,10 @@ class Receiver:
                 dll_gains=self.dll_gains, epochs_per_step=epochs_per_step,
                 agc_thresholds=self.agc_thresholds)
         else:
-            # one CUDA graph per chunk shape on a card (the reference's
-            # jitted track_epochs), track_epochs on the CPU
-            self._tracker = GraphedTracker(
+            # one CUDA graph per chunk shape on a card, shared by the
+            # process's receivers (the reference's jitted track_epochs and
+            # its jit cache), track_epochs on the CPU
+            self._tracker = shared_tracker(
                 fs=cfg.fs, pll_gains=self.pll_gains,
                 dll_gains=self.dll_gains, epochs_per_step=epochs_per_step,
                 agc_thresholds=self.agc_thresholds, device=self.device)
@@ -407,10 +481,81 @@ class Receiver:
             return "xla"
         return "mxu_sharded" if self.mesh is not None else "mxu"
 
+    def _prewarm_acq(self, head_len: int, bits: bool) -> None:
+        """The cold search's prewarm (tpu_gnss/receiver.py:421-456): on a
+        card, the single-block search of the engine :meth:`_resolve_engine`
+        picks, on an all-zero head of ``head_len`` samples ({0,1} samples
+        when ``bits``), once per process for each search: it loads the
+        kernel library and the CUDA modules of the search's ops and fills
+        the searcher's device tables and the cached DFT tables, so that
+        the real cold search finds them built.  The zero head gives no
+        detections (its NaN SNRs fail the threshold) and the call changes
+        no receiver state.  Returns at once on the CPU; a failure
+        raises."""
+        if self.device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        searcher = self._searcher_directed or self.searcher
+        engine = self._resolve_engine(searcher)
+        head = np.zeros(head_len, np.uint8 if bits else np.complex64)
+        kw = dict(bits=head) if bits else dict(iq=head)
+
+        def search():
+            if engine == "mxu_sharded":
+                searcher.detections_refined_sharded(**kw, mesh=self.mesh)
+            elif engine == "mxu":
+                searcher.detections_refined_fast(**kw)
+            else:
+                searcher.detections_refined(searcher.power_grid(**kw), 1)
+
+        run = _warm_once(("search", str(self.device), engine, searcher.cfg,
+                          searcher.n_coherent, head_len, bits), search)
+        dt = time.perf_counter() - t0
+        self.prewarm_stats.update(acq_prewarm_s=dt, acq_searched=run)
+        if _trace_cold():
+            print(f"[cold] acq prewarm body {dt:.4f}s, searched {run}",
+                  flush=True)
+
+    def _prewarm_seeder(self, n_chan: int) -> None:
+        """The channel seeder's prewarm (tpu_gnss/receiver.py:695-704): on
+        a card, once per process, one ``start_channels`` on a fresh bank
+        of ``n_chan`` channels, which loads the CUDA modules of its ops
+        before the cold search seeds the channels.  Returns at once on
+        the CPU; a failure raises."""
+        if self.device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        run = _warm_once(("seeder", str(self.device)), lambda: (
+            tc.start_channels(tc.init_state(n_chan, self.device), [0],
+                              [0.0], [0.0], [0.0])))
+        dt = time.perf_counter() - t0
+        self.prewarm_stats.update(seeder_prewarm_s=dt, seeder_ran=run)
+        if _trace_cold():
+            print(f"[cold] seeder prewarm body {dt:.4f}s, ran {run}",
+                  flush=True)
+
+    def _prewarm_track(self, n_steps: int, n_chan: int,
+                       code_len: int) -> None:
+        """The tracker's prewarm (tpu_gnss/receiver.py:706-731):
+        :meth:`GraphedTracker.prewarm` of the full-chunk key, so that the
+        first chunk replays.  Its dummy code is the tracker's own zeros,
+        never the loop's table cache."""
+        t0 = time.perf_counter()
+        captured = self._tracker.prewarm(n_steps, n_chan, code_len,
+                                         fft=self.fft_correlator)
+        dt = time.perf_counter() - t0
+        self.prewarm_stats.update(track_prewarm_s=dt,
+                                  track_captured=captured)
+        if _trace_cold():
+            print(f"[cold] track prewarm body {dt:.4f}s, captured "
+                  f"{captured}", flush=True)
+
     def _cold_detections(self, head, bits: bool = False,
                          skip_prns=frozenset()) -> list:
         """Refined detections for channel seeding
-        (tpu_gnss/receiver.py:458-532, without the compile prewarm).
+        (tpu_gnss/receiver.py:458-532).  In :meth:`process_source` the
+        search prewarm has run before the first call: the kernel library,
+        the CUDA modules of the search's ops and its tables are built.
 
         ``head`` is a complex-baseband segment, or {0,1} samples when
         ``bits``.  A single-block search that comes up short escalates to
@@ -508,6 +653,14 @@ class Receiver:
         port's decisions do not depend on how long a search takes
         (tests/test_torch_scenarios.py::
         test_reacquisition_applies_at_the_boundary_after_launch).
+
+        The prewarms (module docstring) start first; ``prewarm_stats``
+        then holds their seconds (``acq_prewarm_s``, ``seeder_prewarm_s``,
+        ``track_prewarm_s``), whether each did its work (``acq_searched``,
+        ``seeder_ran``: the first receiver of a process to run that search
+        or seeder; ``track_captured``: the first for that tracker key),
+        and the seconds the loop waited for the prewarm thread
+        (``track_wait_s``), for the parts that ran.
         """
         cfg = self.cfg
         self._searcher_directed = None
@@ -585,23 +738,52 @@ class Receiver:
                     seg = self._transfer(blk[: n_ep * p])
             return (blk, seg, n_ep, n_samp)
 
-        prefetcher = Prefetcher(source, chunk_len, mode=mode,
-                                transform=upload)
+        # the prewarms start at t=0, while the prefetch thread reads the
+        # first chunk: the channel seeder and, without a mesh as in the
+        # reference, the tracker's full-chunk key on the prewarm thread
+        # (waited for before the first tracking chunk), the cold search on
+        # this thread
+        self.prewarm_stats = {}
+        n_chan = max_channels or cfg.num_chans
+        code_len = (fft_len_for_period(p) if self.fft_correlator
+                    else CODE_LEN_CHIPS)
+
+        def device_chain():
+            self._prewarm_seeder(n_chan)
+            if self.mesh is None:
+                self._prewarm_track(chunk_len // (p * eps), n_chan, code_len)
+
+        warm = _Prewarm(device_chain)
         try:
-            return self._stream_loop(
-                iter(prefetcher), source, n_samples, p,
-                chunk_len=chunk_len, use_packed=use_packed,
-                use_bits=use_bits, use_rawiq=use_rawiq,
-                max_duration_s=max_duration_s, max_channels=max_channels,
-                warm_ephemerides=warm_ephemerides, on_solution=on_solution)
+            prefetcher = Prefetcher(source, chunk_len, mode=mode,
+                                    transform=upload)
+            try:
+                self._prewarm_acq(
+                    min(self.weak_noncoherent * self.searcher.block_len,
+                        chunk_len), use_packed or use_bits)
+                result = self._stream_loop(
+                    iter(prefetcher), source, n_samples, p,
+                    chunk_len=chunk_len, use_packed=use_packed,
+                    use_bits=use_bits, use_rawiq=use_rawiq,
+                    max_duration_s=max_duration_s,
+                    max_channels=max_channels,
+                    warm_ephemerides=warm_ephemerides,
+                    on_solution=on_solution, prewarm=warm)
+            finally:
+                prefetcher.stop()
         finally:
-            prefetcher.stop()
+            # the prewarm never outlives the call, even where a short
+            # stream never waited for it
+            warm.join()
+        warm.wait()         # an error that the loop's wait did not raise
+        return result
 
     def _stream_loop(self, blocks, source, n_samples, p, *, chunk_len,
                      use_packed, use_bits, use_rawiq, max_duration_s,
-                     max_channels, warm_ephemerides, on_solution):
+                     max_channels, warm_ephemerides, on_solution, prewarm):
         """Streaming body of :meth:`process_source` (the reference's
-        tpu_gnss/receiver.py:765-1134)."""
+        tpu_gnss/receiver.py:765-1134); the first tracking chunk waits
+        for the ``prewarm`` thread."""
         cfg = self.cfg
         with METRICS.stage("receiver.read"):
             first_item = next(blocks, None)
@@ -685,10 +867,16 @@ class Receiver:
             if all(ch in live for ch in range(n_chan)):
                 return []
             tracked = frozenset(r.prn for r in live.values())
+            t0 = time.perf_counter()
             dets = self._cold_detections(head_of(blk),
                                          bits=use_bits or use_packed,
                                          skip_prns=tracked)
-            return start_detections(dets, epoch_now, epoch_now)
+            t1 = time.perf_counter()
+            started = start_detections(dets, epoch_now, epoch_now)
+            if _trace_cold():
+                print(f"[cold] search {t1 - t0:.4f}s  start_channels "
+                      f"{time.perf_counter() - t1:.4f}s", flush=True)
+            return started
 
         with METRICS.stage("receiver.acquire"):
             first_dets = try_acquire(first, 0)
@@ -776,6 +964,12 @@ class Receiver:
                     solutions.append(sol)
                     on_solution(sol)
                 next_solve += step_ms
+
+        # the first tracking chunk replays the prewarmed graph
+        waited = prewarm.wait()
+        self.prewarm_stats["track_wait_s"] = waited
+        if _trace_cold():
+            print(f"[cold] track prewarm wait {waited:.4f}s", flush=True)
 
         # steady-state re-acquisition runs in a worker thread; results
         # are applied at the next chunk boundary with code-creep

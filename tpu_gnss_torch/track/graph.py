@@ -8,17 +8,26 @@ dispatch.  :class:`GraphedTracker` captures the port's step loop
 ``loop_update`` per step) into one ``torch.cuda.CUDAGraph`` per chunk
 shape and replays it, so a chunk of ``n_steps`` 10 ms steps costs the
 host one graph launch and a few copies instead of two launches a step.
+
+:func:`shared_tracker` is the counterpart of the jit cache itself (and
+of ``tpu_gnss.utils.progcache``'s per-process memo, tpu_gnss/utils/
+progcache.py:48): one tracker, and so one set of graphs, per device and
+option set in a process, shared by every receiver that asks for it.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 
 from .. import kernels
-from .channel import (ChannelState, EpochOut, aid_tensor, loop_opts,
-                      pack_state, track_epochs, track_packed, unpack_state)
+from ..device import resolve_device
+from .channel import (ChannelState, EpochOut, aid_tensor, init_state,
+                      loop_opts, pack_state, track_epochs, track_packed,
+                      unpack_state)
 
 
 class _Captured(NamedTuple):
@@ -55,10 +64,26 @@ class GraphedTracker:
       holds is overwritten by the next replay.  Each replay adds the
       launches the capture recorded to ``kernels.LAUNCHES``.
 
-    A capture or replay that fails raises.  A partial tail chunk is a key
-    of its own, so it runs eagerly.  On the CPU every call is
-    ``track_epochs``.  Each tracker owns its buffers: two trackers never
-    share outputs.
+    :meth:`prewarm` runs a key's eager pass and capture ahead of its
+    first chunk.  A capture or replay that fails raises.  A partial tail
+    chunk is a key of its own, so it runs eagerly on first sight.  On the
+    CPU every call is ``track_epochs``.
+
+    One tracker may serve several receivers and threads
+    (:func:`shared_tracker`).  A lock serialises each call on a card, from
+    the copy into the static inputs to the clones it returns, and the
+    returned tensors are clones: no two calls share outputs.  Each call
+    runs on the caller's current stream; a call on another stream than
+    the previous replay's first waits for that replay's clones.
+    :meth:`counts` says how many chunks ran eagerly, were captured and
+    replayed, and how many keys :meth:`prewarm` built.
+
+    A captured key holds its static samples buffer (``n_steps x e_sub x
+    P`` complex64: 16.4 MB for a 1 s chunk at 2.048 Msps, 80 MB at 10
+    Msps), its state and code copies, and in the graph's private pool the
+    step loop's intermediates and the ``[7, n_steps x e_sub, n_chan]``
+    float32 outputs (336 KB for 1000 epochs x 12 channels), for the
+    tracker's lifetime.
     """
 
     def __init__(self, *, fs: float, pll_gains, dll_gains,
@@ -74,6 +99,24 @@ class GraphedTracker:
         self._opts = loop_opts(**self._kw)
         self._seen: set = set()
         self._graphs: dict = {}
+        self._lock = threading.Lock()
+        self._last = None           # (stream, event) of the last replay
+        self._counts = collections.Counter()
+
+    def counts(self) -> dict:
+        """``{"eager", "captures", "replays", "prewarms"}``: the chunks
+        that calls ran eagerly, captured and replayed on a card, and the
+        keys that :meth:`prewarm` captured (each after an eager pass of
+        its own)."""
+        with self._lock:
+            return {k: self._counts[k]
+                    for k in ("eager", "captures", "replays", "prewarms")}
+
+    def _key(self, n_steps: int, n_chan: int, code_len: int,
+             fft: bool) -> tuple:
+        o = self._opts
+        return (n_steps, o.e_sub, n_chan, o.period, code_len,
+                "fft" if fft else "gather")
 
     def __call__(self, samples: torch.Tensor, state: ChannelState,
                  code_tables: Optional[torch.Tensor] = None,
@@ -95,26 +138,68 @@ class GraphedTracker:
                              "correlator) or code_tables (gather correlator)")
         o = self._opts
         n_steps = samples.shape[0] // (o.period * o.e_sub)
-        code = code_tables if code_ffts is None else code_ffts
-        key = (n_steps, o.e_sub, state.active.shape[0], o.period,
-               code.shape[-1], "gather" if code_ffts is None else "fft")
-        cap = self._graphs.get(key)
-        if cap is None:
-            if key not in self._seen:
-                self._seen.add(key)
-                return eager()
-            cap = self._graphs[key] = self._capture(
-                n_steps, state, code, code_ffts is not None)
-        n = cap.samples.shape[0]
-        cap.samples.copy_(samples[:n])
-        pack_state(state, out=cap.state)
-        cap.code.copy_(code)
-        cap.aid_offset.fill_(float(aid_offset_hz))
-        cap.graph.replay()
-        for name, k in cap.launches.items():
-            kernels.LAUNCHES.add(name, k)
-        return (unpack_state(cap.state.clone()),
-                EpochOut(*cap.outs.clone()))
+        fft = code_ffts is not None
+        code = code_ffts if fft else code_tables
+        key = self._key(n_steps, state.active.shape[0], code.shape[-1], fft)
+        with self._lock:
+            cap = self._graphs.get(key)
+            if cap is None:
+                if key not in self._seen:
+                    self._seen.add(key)
+                    self._counts["eager"] += 1
+                    return eager()
+                cap = self._graphs[key] = self._capture(n_steps, state,
+                                                        code, fft)
+                self._counts["captures"] += 1
+            stream = torch.cuda.current_stream(self.device)
+            if self._last is not None and self._last[0] != stream:
+                stream.wait_event(self._last[1])
+            n = cap.samples.shape[0]
+            cap.samples.copy_(samples[:n])
+            pack_state(state, out=cap.state)
+            cap.code.copy_(code)
+            cap.aid_offset.fill_(float(aid_offset_hz))
+            cap.graph.replay()
+            for name, k in cap.launches.items():
+                kernels.LAUNCHES.add(name, k)
+            out = (unpack_state(cap.state.clone()),
+                   EpochOut(*cap.outs.clone()))
+            done = torch.cuda.Event()
+            done.record(stream)
+            self._last = (stream, done)
+            self._counts["replays"] += 1
+            return out
+
+    def prewarm(self, n_steps: int, n_chan: int, code_len: int,
+                fft: bool) -> bool:
+        """Build the key of ``n_steps`` steps over ``n_chan`` channels and
+        ``code_len`` code columns (the spectra's NF with ``fft``, else the
+        1023-chip tables) before its first chunk: the eager pass on zero
+        samples from ``init_state(n_chan)``, which fills the cached device
+        tables, then the capture, so that the key's first chunk replays.
+        Returns whether it captured: False on the CPU, where there is
+        nothing to build, and for a key captured already.  A failure
+        raises."""
+        if self.device.type != "cuda":
+            return False
+        o, dev = self._opts, self.device
+        key = self._key(n_steps, n_chan, code_len, fft)
+        with self._lock:
+            if key in self._graphs:
+                return False
+            samples = torch.zeros(n_steps * o.period * o.e_sub,
+                                  dtype=torch.complex64, device=dev)
+            code = torch.zeros(n_chan, code_len, device=dev,
+                               dtype=torch.complex64 if fft
+                               else torch.float32)
+            state, _ = track_epochs(samples, init_state(n_chan, dev),
+                                    None if fft else code,
+                                    code_ffts=code if fft else None,
+                                    **self._kw)
+            self._seen.add(key)
+            self._graphs[key] = self._capture(n_steps, state, code, fft)
+            self._counts["prewarms"] += 1
+            return True
 
     def _capture(self, n_steps: int, state: ChannelState,
                  code: torch.Tensor, fft: bool) -> _Captured:
@@ -139,3 +224,33 @@ class GraphedTracker:
         torch.cuda.current_stream(dev).wait_stream(side)
         return _Captured(graph, samples, packed, code_s, aid, outs,
                          dict(tally))
+
+
+_SHARED: dict = {}
+_SHARED_LOCK = threading.Lock()
+
+
+def shared_tracker(*, device, fs: float, pll_gains, dll_gains,
+                   fll_bn_hz: float = 3.0, corr_spacing: float = 0.5,
+                   carrier_aiding: bool = True, epochs_per_step: int = 1,
+                   agc_thresholds=None) -> GraphedTracker:
+    """The process's :class:`GraphedTracker` for the resolved ``device``
+    and these static options: the same tracker, with its graphs, for
+    equal options, and another when any of them differs, as ``jax.jit``
+    keys ``track_epochs`` on its static arguments (tpu_gnss/track/
+    channel.py:188-193)."""
+    dev = resolve_device(device)
+    kw = dict(fs=float(fs), pll_gains=tuple(float(g) for g in pll_gains),
+              dll_gains=tuple(float(g) for g in dll_gains),
+              fll_bn_hz=fll_bn_hz, corr_spacing=corr_spacing,
+              carrier_aiding=carrier_aiding,
+              epochs_per_step=epochs_per_step,
+              agc_thresholds=(None if agc_thresholds is None
+                              else tuple(float(a) for a in agc_thresholds)))
+    key = (str(dev), loop_opts(**kw), kw["fs"], kw["pll_gains"],
+           kw["dll_gains"])
+    with _SHARED_LOCK:
+        tracker = _SHARED.get(key)
+        if tracker is None:
+            tracker = _SHARED[key] = GraphedTracker(**kw, device=dev)
+        return tracker
