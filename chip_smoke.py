@@ -168,7 +168,7 @@ prints no result line):
    receiver of each geometry is the first of the process to ask), then
    phase 3's e2e 20 s 1-bit capture and
    phase 9's hackrf 4 s int8 scene through two fresh receivers each,
-   with ``TPU_GNSS_TORCH_TRACE_COLD`` set, each run's tracker
+   recording the program's spans, each run's tracker
    counts (eager chunks, captures and replays of the loop), prewarm and
    wait seconds, wall and the device memory reserved beyond the phase's
    start (``torch.cuda.memory_reserved`` after ``empty_cache``); it fails
@@ -176,8 +176,9 @@ prints no result line):
    prewarm did not capture or the second's did, if a result (detections,
    channel histories, fixes) is not bit-identical to a receiver's on a
    private, un-prewarmed ``GraphedTracker``, or if a gate of phases 3
-   and 9 misses.  Phase 3 prints its ``[cold]`` lines too: the first
-   receiver of the process.
+   and 9 misses; each run's prewarm spans (``receiver.prewarm.*``, the
+   wait for them) and search spans are printed.  Phase 3 prints its cold
+   start's spans too: the first receiver of the process.
 
 Phase 2 also holds ``fold_corr_reduce`` at the e2e shape with 5 and 11 SVs
 (the directed search's SV counts).  Phases 8-18 run before 6-7, inside
@@ -2770,6 +2771,23 @@ def same_result(a, b) -> bool:
     return fix(a) == fix(b)
 
 
+COLD_SPANS = ("receiver.init", "receiver.prewarm.acq",
+              "receiver.prewarm.seeder", "receiver.prewarm.track",
+              "receiver.prewarm_wait", "acquire.search", "acquire.seed")
+
+
+def log_cold_spans(name, spans) -> None:
+    """One line: the seconds of each of ``COLD_SPANS`` among ``spans``
+    (the program's records of one run), summed with their count."""
+    parts = []
+    for k in COLD_SPANS:
+        got = [s.end - s.start for s in spans if s.name == k]
+        if got:
+            parts.append(f"{k} {sum(got):.4f} s" + (f" x{len(got)}"
+                                                    if len(got) > 1 else ""))
+    log(f"{name}: cold-start spans: " + (", ".join(parts) or "none"))
+
+
 def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
     """Phase 18e: the receiver's prewarm and the process's shared
     trackers (module docstring).  Returns, per geometry, the two
@@ -2777,8 +2795,9 @@ def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
     device memory held, and the private tracker's run."""
     from tpu_gnss_torch.io.stream import FileSource1Bit, IQFileSource
     from tpu_gnss_torch import receiver
-    from tpu_gnss_torch.receiver import TRACE_COLD_ENV, Receiver
+    from tpu_gnss_torch.receiver import Receiver
     from tpu_gnss_torch.track import graph
+    from tpu_gnss_torch.utils.metrics import METRICS
     cfg9, path9, fmt9, true9 = scene9
 
     def gates_e2e(label, recv, res, launches):
@@ -2810,15 +2829,16 @@ def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved(dev)
     out = {}
-    os.environ[TRACE_COLD_ENV] = "1"
-    try:
+    with METRICS.recording():
         for label, c, src, duration, gates in cases:
             runs, results = [], []
             for i in (1, 2):
                 recv = Receiver(c, device=dev)
                 before = recv._tracker.counts()
                 name = f"prewarm {label}, receiver {i}"
+                METRICS.drain()
                 res, wall, launches, _ = drive(name, recv, src(), duration)
+                log_cold_spans(name, METRICS.drain()[0])
                 after = recv._tracker.counts()
                 loop = {k: after[k] - before[k] for k in after}
                 torch.cuda.synchronize()
@@ -2866,8 +2886,6 @@ def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
                      "the private tracker's")
             out[label] = dict(runs=runs, private=dict(counts=counts_ref,
                                                       wall=wall_ref))
-    finally:
-        os.environ.pop(TRACE_COLD_ENV, None)
     return out
 
 
@@ -2980,12 +2998,11 @@ def run_phases(stack: contextlib.ExitStack) -> int:
                              snr_threshold=17.0, num_chans=12)
         path_e2e, path_e2e8, path_e2e_iq, rx = build_capture(
             cfg, 20.0, tmp, "e2e", iq8=True)
-        # the process's first receiver prints its cold start
-        os.environ["TPU_GNSS_TORCH_TRACE_COLD"] = "1"
-        try:
+        # the process's first receiver prints its cold start's spans
+        from tpu_gnss_torch.utils.metrics import METRICS
+        with METRICS.recording():
             res, wall, launches = run_receiver(cfg, path_e2e, 20.0, "e2e")
-        finally:
-            os.environ.pop("TPU_GNSS_TORCH_TRACE_COLD", None)
+        log_cold_spans("e2e", METRICS.drain()[0])
         decoded = [r for r in res.channels if r.eph.valid()]
         err = fix_error(res, rx)
         log(f"e2e: {len(res.detections)} detections "

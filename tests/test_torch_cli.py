@@ -160,11 +160,14 @@ def _argv(cap, *extra):
 
 
 def _until_report(out: str) -> list:
-    """stdout up to the timing report (its rows start with the stage
-    names ``receiver.*``)."""
+    """stdout up to the timing report (its rows are a stage or span name,
+    then ``n=``)."""
     lines = out.splitlines()
-    end = next(i for i, ln in enumerate(lines) if ln.startswith("receiver."))
+    end = next(i for i, ln in enumerate(lines) if _ROW.match(ln))
     return lines[:end]
+
+
+_ROW = re.compile(r"^[a-z_.]+ +n= *\d+ total=")
 
 
 _NUM = re.compile(r"[-+]?\d+(?:\.\d+)?")

@@ -2,9 +2,9 @@
 
 On the CPU the prewarm bodies return at once (there is nothing to build),
 so these tests hold what surrounds them: ``shared_tracker``'s keys, two
-receivers of one process against the JAX receiver, the waits, the errors
-and the ``[cold]`` trace lines.  ``chip_smoke.py`` phase 18e runs the
-bodies on the card.
+receivers of one process against the JAX receiver, the waits and the
+errors (their spans: tests/test_torch_spans.py).  ``chip_smoke.py``
+phase 18e runs the bodies on the card.
 """
 
 import threading
@@ -18,7 +18,7 @@ from tpu_gnss.config import ReceiverConfig
 from tpu_gnss_torch.acquire.folded import FoldedSearcher
 from tpu_gnss_torch.dist.shard import make_mesh
 from tpu_gnss_torch.io.stream import FileSource1Bit
-from tpu_gnss_torch.receiver import TRACE_COLD_ENV, Receiver
+from tpu_gnss_torch.receiver import Receiver
 from tpu_gnss_torch.signal import scene
 from tpu_gnss_torch.track import channel as tc
 from tpu_gnss_torch.track import graph
@@ -177,27 +177,6 @@ def test_the_search_waits_for_its_prewarm(capture, monkeypatch):
     _, got = _run(capture)
     assert order[:2] == ["prewarm", "search"]
     assert got.detections == want.detections
-
-
-def test_cold_trace_lines(capture, monkeypatch, capsys):
-    """``TPU_GNSS_TORCH_TRACE_COLD`` prints the reference's cold-start
-    lines and the tracker's; unset (or "0"), nothing."""
-    for value in (None, "0"):
-        if value is None:
-            monkeypatch.delenv(TRACE_COLD_ENV, raising=False)
-        else:
-            monkeypatch.setenv(TRACE_COLD_ENV, value)
-        _run(capture)
-        assert "[cold]" not in capsys.readouterr().out
-    monkeypatch.setenv(TRACE_COLD_ENV, "1")
-    recv, _ = _run(capture)
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if ln.startswith("[cold]")]
-    for head in ("[cold] search ", "[cold] track prewarm body ",
-                 "[cold] track prewarm wait "):
-        assert sum(ln.startswith(head) for ln in lines) == 1, (head, lines)
-    assert any("start_channels" in ln for ln in lines)
-    assert recv.prewarm_stats["track_captured"] is False   # the CPU
 
 
 @pytest.mark.parametrize("engine", ["mxu", "xla"])

@@ -41,6 +41,7 @@ from ..ops.mxu_corr import (fold_code_planes_T, fold_corr_reduce,
                             four_step_np, split_nf)
 from ..ops.onebit import mix_packed, pack_bits_to_words, words_to_tensor
 from ..signal import cacode
+from ..utils.metrics import METRICS
 from .search import mix_baseband
 
 # Doppler rows per FFT batch of the grid engine (the reference's default
@@ -525,8 +526,9 @@ class FoldedSearcher:
             fs=self.cfg.fs, lo_rate=self.cfg.lo_rate,
             n_coherent=self.n_coherent, n_noncoherent=n_noncoherent,
             from_bits=from_bits, period=self.period, nf=self.nf)
-        return self._dets_from_stack(stacked.cpu().numpy(), skip_prns,
-                                     n_noncoherent)
+        with METRICS.stage("acquire.fetch"):
+            stacked = stacked.cpu().numpy()
+        return self._dets_from_stack(stacked, skip_prns, n_noncoherent)
 
     def detections_refined_sharded(self, bits=None, iq=None,
                                    n_noncoherent: int = 1, skip_prns=(),
@@ -552,8 +554,9 @@ class FoldedSearcher:
             mesh=mesh, fs=self.cfg.fs, lo_rate=self.cfg.lo_rate,
             n_coherent=self.n_coherent, n_noncoherent=n_noncoherent,
             period=self.period, nf=self.nf, from_bits=from_bits)
-        return self._dets_from_stack(stacked.cpu().numpy(), skip_prns,
-                                     n_noncoherent)
+        with METRICS.stage("acquire.fetch"):
+            stacked = stacked.cpu().numpy()
+        return self._dets_from_stack(stacked, skip_prns, n_noncoherent)
 
     def mxu_supported(self) -> bool:
         """True when the transform length factors for the kernel engine."""

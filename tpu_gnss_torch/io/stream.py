@@ -27,6 +27,7 @@ import numpy as np
 
 from ..config import ReceiverConfig
 from ..ops.onebit import packed_words_from_file_bytes
+from ..utils.metrics import METRICS
 from . import loaders
 
 
@@ -584,6 +585,9 @@ class Prefetcher:
     thread.  The receiver passes its host->device upload here so
     transfers overlap device compute and output fetches instead of
     serializing with them.
+
+    The pump runs in the creating thread's span and capture; each step of
+    the source's reader is an ``io.read`` span.
     """
 
     def __init__(self, source: SampleSource, block_len: int, depth: int = 3,
@@ -594,16 +598,26 @@ class Prefetcher:
         self._mode = mode
         self._transform = transform
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._pump, daemon=True)
+        self._thread = threading.Thread(target=self._pump,
+                                        args=(METRICS.handoff(),),
+                                        daemon=True)
         self._thread.start()
 
-    def _pump(self):
+    def _pump(self, handoff):
+        with METRICS.adopted(handoff):
+            self._pump_blocks()
+
+    def _pump_blocks(self):
         it = None
         try:
             name = {"bits": "bit_blocks", "packed": "packed_blocks",
                     "rawiq": "raw_blocks", "iq": "blocks"}[self._mode]
             it = getattr(self._src, name)(self._block_len)
-            for blk in it:
+            while True:
+                with METRICS.stage("io.read"):
+                    blk = next(it, None)
+                if blk is None:
+                    break
                 if self._stop.is_set():
                     return
                 if self._transform is not None:

@@ -54,9 +54,9 @@ PERF.md §6.)  Without a mesh the tracker is
 :func:`tpu_gnss_torch.track.graph.shared_tracker`'s, shared by every
 receiver of the process with the same options and device, so only the
 first of them builds its graphs; likewise only the first receiver of a
-process to run a given search or seeder warms it.  With
-``TPU_GNSS_TORCH_TRACE_COLD`` set (and not "0") the cold start prints
-its ``[cold]`` timing lines.
+process to run a given search or seeder warms it.  The prewarms and
+the waits for them are spans (``receiver.prewarm.*``,
+``receiver.prewarm_wait``; :data:`tpu_gnss_torch.utils.metrics.SPANS`).
 """
 
 from __future__ import annotations
@@ -64,7 +64,6 @@ from __future__ import annotations
 import bisect
 import copy
 import dataclasses
-import os
 import threading
 import time
 from collections import deque
@@ -99,14 +98,6 @@ _HIST_KEYS = ("ip", "qp", "cf", "caf", "chips")
 #: link names of ``Receiver(transfer_dtype=)``, as the reference's
 TRANSFER_DTYPES = ("int8", "int4", "int2", "float32")
 ACQ_ENGINES = ("auto", "mxu", "xla")
-#: environment variable that turns on the ``[cold]`` start-up timing lines
-#: (the reference's ``TPU_GNSS_TRACE_COLD``)
-TRACE_COLD_ENV = "TPU_GNSS_TORCH_TRACE_COLD"
-
-
-def _trace_cold() -> bool:
-    return os.environ.get(TRACE_COLD_ENV, "") not in ("", "0")
-
 
 # the prewarms that ran in this process, by key: what a prewarm warms (the
 # kernel library, the cached tables, the CUDA modules and FFT plans of its
@@ -129,18 +120,21 @@ def _warm_once(key, body) -> bool:
 
 
 class _Prewarm(threading.Thread):
-    """A prewarm body started in a daemon thread: its error is kept for
-    :meth:`wait`, which re-raises it."""
+    """A prewarm body started in a daemon thread, in the caller's span
+    and capture: its error is kept for :meth:`wait`, which re-raises
+    it."""
 
     def __init__(self, body):
         super().__init__(daemon=True)
         self._body = body
+        self._handoff = METRICS.handoff()
         self.error = None
         self.start()
 
     def run(self) -> None:
         try:
-            self._body()
+            with METRICS.adopted(self._handoff):
+                self._body()
         except BaseException as exc:   # re-raised by wait()
             self.error = exc
 
@@ -355,6 +349,7 @@ class Receiver:
     ``mesh.shape["dop"]``.
     """
 
+    @METRICS.stage("receiver.init")
     def __init__(self, cfg: ReceiverConfig, pll_bn_hz: float = 18.0,
                  dll_bn_hz: float = 2.0, n_coherent: int = 4,
                  solve_interval_s: float = 4.0,
@@ -481,6 +476,7 @@ class Receiver:
             return "xla"
         return "mxu_sharded" if self.mesh is not None else "mxu"
 
+    @METRICS.stage("receiver.prewarm.acq")
     def _prewarm_acq(self, head_len: int, bits: bool) -> None:
         """The cold search's prewarm (tpu_gnss/receiver.py:421-456): on a
         card, the single-block search of the engine :meth:`_resolve_engine`
@@ -512,10 +508,8 @@ class Receiver:
                           searcher.n_coherent, head_len, bits), search)
         dt = time.perf_counter() - t0
         self.prewarm_stats.update(acq_prewarm_s=dt, acq_searched=run)
-        if _trace_cold():
-            print(f"[cold] acq prewarm body {dt:.4f}s, searched {run}",
-                  flush=True)
 
+    @METRICS.stage("receiver.prewarm.seeder")
     def _prewarm_seeder(self, n_chan: int) -> None:
         """The channel seeder's prewarm (tpu_gnss/receiver.py:695-704): on
         a card, once per process, one ``start_channels`` on a fresh bank
@@ -530,10 +524,8 @@ class Receiver:
                               [0.0], [0.0], [0.0])))
         dt = time.perf_counter() - t0
         self.prewarm_stats.update(seeder_prewarm_s=dt, seeder_ran=run)
-        if _trace_cold():
-            print(f"[cold] seeder prewarm body {dt:.4f}s, ran {run}",
-                  flush=True)
 
+    @METRICS.stage("receiver.prewarm.track")
     def _prewarm_track(self, n_steps: int, n_chan: int,
                        code_len: int) -> None:
         """The tracker's prewarm (tpu_gnss/receiver.py:706-731):
@@ -546,9 +538,6 @@ class Receiver:
         dt = time.perf_counter() - t0
         self.prewarm_stats.update(track_prewarm_s=dt,
                                   track_captured=captured)
-        if _trace_cold():
-            print(f"[cold] track prewarm body {dt:.4f}s, captured "
-                  f"{captured}", flush=True)
 
     def _cold_detections(self, head, bits: bool = False,
                          skip_prns=frozenset()) -> list:
@@ -574,7 +563,9 @@ class Receiver:
         engine = self._resolve_engine(searcher)
         kw = dict(bits=head) if bits else dict(iq=head)
 
+        @METRICS.stage("acquire.search")
         def run(n_nc, searcher):
+            METRICS.add("acquire.searches")
             if engine == "mxu_sharded":
                 return searcher.detections_refined_sharded(
                     **kw, n_noncoherent=n_nc, skip_prns=skip_prns,
@@ -615,6 +606,7 @@ class Receiver:
                                    chunk_s=chunk_s)
 
     # ------------------------------------------------------------------
+    @METRICS.stage("receiver.capture", root=True)
     def process_source(self, source, max_duration_s: Optional[float] = None,
                        max_channels: Optional[int] = None,
                        chunk_s: float = 1.0,
@@ -770,11 +762,13 @@ class Receiver:
                     warm_ephemerides=warm_ephemerides,
                     on_solution=on_solution, prewarm=warm)
             finally:
-                prefetcher.stop()
+                with METRICS.stage("receiver.close"):
+                    prefetcher.stop()
         finally:
             # the prewarm never outlives the call, even where a short
             # stream never waited for it
-            warm.join()
+            with METRICS.stage("receiver.close"):
+                warm.join()
         warm.wait()         # an error that the loop's wait did not raise
         return result
 
@@ -807,6 +801,7 @@ class Receiver:
         recs: list = []      # every record ever started (incl. lost)
         acq_head_len = self.weak_noncoherent * self.searcher.block_len
 
+        @METRICS.stage("acquire.head")
         def head_of(blk):
             """Acquisition-ready head samples of a host chunk."""
             if use_packed:     # acquisition sees {0,1} samples
@@ -818,6 +813,7 @@ class Receiver:
                     remove_dc=getattr(source, "remove_dc", True))
             return blk[:acq_head_len]
 
+        @METRICS.stage("acquire.seed")
         def start_detections(dets, epoch_searched, epoch_now):
             """Seed channels from detections into free slots, with the
             code phase propagated to ``epoch_now`` (the reference's
@@ -867,16 +863,10 @@ class Receiver:
             if all(ch in live for ch in range(n_chan)):
                 return []
             tracked = frozenset(r.prn for r in live.values())
-            t0 = time.perf_counter()
             dets = self._cold_detections(head_of(blk),
                                          bits=use_bits or use_packed,
                                          skip_prns=tracked)
-            t1 = time.perf_counter()
-            started = start_detections(dets, epoch_now, epoch_now)
-            if _trace_cold():
-                print(f"[cold] search {t1 - t0:.4f}s  start_channels "
-                      f"{time.perf_counter() - t1:.4f}s", flush=True)
-            return started
+            return start_detections(dets, epoch_now, epoch_now)
 
         with METRICS.stage("receiver.acquire"):
             first_dets = try_acquire(first, 0)
@@ -966,10 +956,8 @@ class Receiver:
                 next_solve += step_ms
 
         # the first tracking chunk replays the prewarmed graph
-        waited = prewarm.wait()
-        self.prewarm_stats["track_wait_s"] = waited
-        if _trace_cold():
-            print(f"[cold] track prewarm wait {waited:.4f}s", flush=True)
+        with METRICS.stage("receiver.prewarm_wait"):
+            self.prewarm_stats["track_wait_s"] = prewarm.wait()
 
         # steady-state re-acquisition runs in a worker thread; results
         # are applied at the next chunk boundary with code-creep
@@ -983,9 +971,10 @@ class Receiver:
             job = {"done": threading.Event(), "dets": [], "error": None,
                    "epoch": epoch_now, "loss_mark": loss_events}
 
-            def work():
+            def work(handoff):
                 try:
-                    with METRICS.stage("receiver.acquire"):
+                    with (METRICS.adopted(handoff),
+                          METRICS.stage("receiver.acquire")):
                         job["dets"] = self._cold_detections(
                             head_of(blk), bits=use_bits or use_packed,
                             skip_prns=tracked)
@@ -994,11 +983,13 @@ class Receiver:
                 finally:
                     job["done"].set()
 
-            threading.Thread(target=work, daemon=True).start()
+            threading.Thread(target=work, args=(METRICS.handoff(),),
+                             daemon=True).start()
             return job
 
-        def fetch(a, b):
-            return a.cpu().numpy(), b.cpu().numpy()
+        def fetch(handoff, a, b):
+            with METRICS.adopted(handoff), METRICS.stage("receiver.copy"):
+                return a.cpu().numpy(), b.cpu().numpy()
 
         # chunks in flight before the host drains: live mode keeps one so
         # fixes and the watchdog lag the stream by at most one chunk
@@ -1018,7 +1009,8 @@ class Receiver:
                     # tracks at ~100x realtime lands many chunks later, at
                     # an epoch that depends on thread timing, and the
                     # code-creep propagation over that gap can miss lock
-                    reacq_job["done"].wait()
+                    with METRICS.stage("receiver.reacq_wait"):
+                        reacq_job["done"].wait()
                     if reacq_job["error"] is not None:
                         raise reacq_job["error"]
                     started = start_detections(reacq_job["dets"],
@@ -1044,8 +1036,9 @@ class Receiver:
                     state, out = self._tracker(seg, state, tables, code_ffts,
                                                float(self._if_offset))
                     out_dev, elp_dev = _pack_out(out)
-                pendings.append((fetch_pool.submit(fetch, out_dev, elp_dev),
-                                 list(live.values()), n_ep))
+                pendings.append((fetch_pool.submit(
+                    fetch, METRICS.handoff(), out_dev, elp_dev),
+                    list(live.values()), n_ep))
                 n_dispatched += n_ep
                 while len(pendings) > depth:
                     drain(pendings.popleft())
@@ -1063,7 +1056,8 @@ class Receiver:
                 if on_solution is not None:
                     instream_solve()
         finally:
-            fetch_pool.shutdown(wait=True, cancel_futures=True)
+            with METRICS.stage("receiver.close"):
+                fetch_pool.shutdown(wait=True, cancel_futures=True)
             if reacq_job is not None:
                 reacq_job["done"].wait()
 
@@ -1135,12 +1129,14 @@ class Receiver:
         if cached is not None and cached[0] == slot_key:
             return cached[1]
         prns = [prn if prn is not None else 1 for prn in slot_key]
-        if self.fft_correlator:
-            pair = (None, torch.from_numpy(
-                tc.code_spectra_np(prns, n_chan, self.cfg.fs)).to(self.device))
-        else:
-            pair = (torch.from_numpy(
-                tc.channel_code_tables(prns, n_chan)).to(self.device), None)
+        with METRICS.stage("track.tables"):
+            if self.fft_correlator:
+                pair = (None, torch.from_numpy(tc.code_spectra_np(
+                    prns, n_chan, self.cfg.fs)).to(self.device))
+            else:
+                pair = (torch.from_numpy(
+                    tc.channel_code_tables(prns, n_chan)).to(self.device),
+                    None)
         self._tables_cache = (slot_key, pair)
         return pair
 

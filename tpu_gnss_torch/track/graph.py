@@ -25,6 +25,7 @@ import torch
 
 from .. import kernels
 from ..device import resolve_device
+from ..utils.metrics import METRICS
 from .channel import (ChannelState, EpochOut, aid_tensor, init_state,
                       loop_opts, pack_state, track_epochs, track_packed,
                       unpack_state)
@@ -147,10 +148,12 @@ class GraphedTracker:
                 if key not in self._seen:
                     self._seen.add(key)
                     self._counts["eager"] += 1
+                    METRICS.add("track.graph_misses")
                     return eager()
                 cap = self._graphs[key] = self._capture(n_steps, state,
                                                         code, fft)
                 self._counts["captures"] += 1
+                METRICS.add("track.graph_misses")
             stream = torch.cuda.current_stream(self.device)
             if self._last is not None and self._last[0] != stream:
                 stream.wait_event(self._last[1])
@@ -199,6 +202,7 @@ class GraphedTracker:
             self._seen.add(key)
             self._graphs[key] = self._capture(n_steps, state, code, fft)
             self._counts["prewarms"] += 1
+            METRICS.add("track.graph_misses")
             return True
 
     def _capture(self, n_steps: int, state: ChannelState,

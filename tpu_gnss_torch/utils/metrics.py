@@ -1,4 +1,4 @@
-"""Stage timers and the receiver's text dashboard.
+"""Stage timers and spans, and the receiver's text dashboard.
 
 Copied from tpu_gnss/utils/metrics.py:21-64 (``Metrics`` / ``METRICS``,
 with a lock added: the port's prefetch, fetch and re-acquisition threads
@@ -8,66 +8,222 @@ feed it) and 91-222 (``channel_bars``, ``solution_line``, ``latlon_dms``,
 ``jax.profiler`` onto ``torch.profiler``.  Stage times are host wall
 clock: a stage that enqueues device work without waiting measures the
 enqueue.
+
+Beyond the reference, a stage is a span.  While recording is on (inside
+:meth:`Metrics.recording`, or while a ``torch.profiler`` runs) each stage
+also keeps a :class:`Span` (its start and end, thread, parent and capture)
+and each :meth:`Metrics.add` a :class:`Count`, in a bounded buffer; and
+while a profiler runs, each stage is a ``record_function`` of its name,
+so it lands in the profiler's trace beside the kernels, on its clock.
+Every name the port opens or counts is in :data:`SPANS` or
+:data:`COUNTERS`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import glob
+import itertools
 import os
 import sys
 import threading
 import time
 from collections import defaultdict
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
+#: every span the port opens, with what it covers.  "The loop" is the
+#: caller's thread in ``Receiver.process_source``; the pump, fetch,
+#: prewarm and re-acquisition threads carry its capture.
+SPANS = (
+    ("receiver.capture", "root: one process_source call (a capture)"),
+    ("receiver.init", "Receiver.__init__: the searcher and shared tracker"),
+    ("receiver.total", "cli.run_receiver: its process_source call"),
+    ("receiver.read", "the loop waiting for the pump's next chunk"),
+    ("receiver.transfer", "pump: a chunk's upload and device conversion "
+     "enqueued"),
+    ("receiver.acquire", "a cold or re-acquisition search and its seeding"),
+    ("receiver.track", "the tracker's call on a chunk, outputs packed"),
+    ("receiver.fetch", "the loop waiting for a chunk's outputs"),
+    ("receiver.drain", "a chunk's outputs into the records, the watchdog"),
+    ("receiver.nav", "NAV decoding"),
+    ("receiver.solve", "PVT solves"),
+    ("receiver.copy", "fetch thread: a chunk's outputs copied to the host"),
+    ("receiver.prewarm.acq", "the loop: the cold search's prewarm"),
+    ("receiver.prewarm.seeder", "prewarm thread: the channel seeder's"),
+    ("receiver.prewarm.track", "prewarm thread: the tracker's full-chunk "
+     "graph"),
+    ("receiver.prewarm_wait", "the loop waiting for the prewarm thread"),
+    ("receiver.reacq_wait", "the loop waiting for a re-acquisition search "
+     "at the chunk boundary after its launch"),
+    ("receiver.close", "the pump stopped, the fetch pool shut down, the "
+     "prewarm thread joined"),
+    ("io.read", "pump: one step of the source's reader (the file read)"),
+    ("track.tables", "the code spectra or tables built and uploaded for a "
+     "new slot map"),
+    ("acquire.head", "a search head unpacked or converted on the host"),
+    ("acquire.search", "one search run: upload, kernels, refinement, the "
+     "host fetch and thresholds"),
+    ("acquire.fetch", "the search's [3, n_sv] result copied to the host"),
+    ("acquire.seed", "channels seeded from detections"),
+)
+#: every counter the port adds to while recording, with what it counts
+COUNTERS = (
+    ("acquire.searches", "search runs: cold, weak escalation, directed "
+     "fallback, re-acquisition (not the prewarm's)"),
+    ("track.graph_misses", "tracker chunks run eagerly or captured, and "
+     "prewarm captures"),
+)
+#: records kept while recording; more are counted in ``Metrics.dropped``
+SPAN_BUFFER = 1 << 16
+
+
+class Span(NamedTuple):
+    """One stage call while recording: ``perf_counter`` seconds, the
+    thread's native id, and the ids of the span and of its parent (the
+    innermost span open on the thread, or the one that started the
+    thread's work; None for a root) and the capture (None outside one)."""
+    name: str
+    start: float
+    end: float
+    thread: int
+    id: int
+    parent: Optional[int]
+    capture: Optional[int]
+
+
+class Count(NamedTuple):
+    """One :meth:`Metrics.add` while recording, in the span it ran in."""
+    name: str
+    value: float
+    thread: int
+    parent: Optional[int]
+    capture: Optional[int]
+
+
+def _profiler():
+    """``torch.autograd.profiler`` while a ``torch.profiler`` runs (its
+    flag reads True on every thread), else None."""
+    mod = sys.modules.get("torch.autograd.profiler")
+    return mod if getattr(mod, "_is_profiler_enabled", False) else None
+
 
 class Metrics:
-    """Process-wide stage timing + counter registry (thread-safe)."""
+    """Process-wide stage timing, spans and counter registry
+    (thread-safe)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.timings = defaultdict(list)   # stage -> [seconds]
         self.counters = defaultdict(float)  # name -> value
+        self._recording = 0                 # open recording() blocks
+        self._records: list = []            # Span and Count, in order
+        self.dropped = 0                    # records past SPAN_BUFFER
+        self._ids = itertools.count(1)
+        self._captures = itertools.count(1)
+        self._local = threading.local()     # .top: (span id, capture)
 
     @contextlib.contextmanager
-    def stage(self, name: str, samples: Optional[int] = None):
+    def recording(self):
+        """Keep spans and counts for the block (they stay in the buffer
+        until :meth:`drain`)."""
+        with self._lock:
+            self._recording += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._recording -= 1
+
+    def _keep(self, rec) -> None:
+        # under self._lock
+        if len(self._records) < SPAN_BUFFER:
+            self._records.append(rec)
+        else:
+            self.dropped += 1
+
+    def handoff(self) -> tuple:
+        """The calling thread's innermost open span and capture, for work
+        it starts on another thread (:meth:`adopted`)."""
+        return getattr(self._local, "top", (None, None))
+
+    @contextlib.contextmanager
+    def adopted(self, handoff: tuple):
+        """Open this thread's spans under ``handoff``'s span and
+        capture."""
+        prev = self.handoff()
+        self._local.top = handoff
+        try:
+            yield
+        finally:
+            self._local.top = prev
+
+    @contextlib.contextmanager
+    def stage(self, name: str, root: bool = False):
+        """Time the block into ``timings[name]``; while recording, keep it
+        as a span (``root``: a new capture's root span)."""
+        prof = _profiler()
+        span = None                         # (id, parent, capture)
+        if self._recording or prof:
+            prev = self.handoff()
+            span = ((next(self._ids), None, next(self._captures)) if root
+                    else (next(self._ids), *prev))
+            self._local.top = (span[0], span[2])
+        mark = prof.record_function(name) if prof else None
+        if mark is not None:
+            mark.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            if mark is not None:
+                mark.__exit__(None, None, None)
+            if span is not None:
+                self._local.top = prev
             with self._lock:
-                self.timings[name].append(dt)
-                if samples is not None:
-                    self.counters[f"{name}.samples"] += samples
+                self.timings[name].append(t1 - t0)
+                if span is not None:
+                    self._keep(Span(name, t0, t1, threading.get_native_id(),
+                                    *span))
 
     def add(self, name: str, value: float = 1.0) -> None:
         with self._lock:
             self.counters[name] += value
+            if self._recording or _profiler():
+                parent, capture = self.handoff()
+                self._keep(Count(name, value, threading.get_native_id(),
+                                 parent, capture))
 
-    def throughput(self, name: str) -> Optional[float]:
-        """Samples/s for a stage fed with ``samples=``."""
-        total_t = sum(self.timings.get(name, []))
-        total_s = self.counters.get(f"{name}.samples", 0.0)
-        return (total_s / total_t) if total_t > 0 else None
+    def spans(self) -> list:
+        """The :class:`Span` records kept, oldest first."""
+        with self._lock:
+            return [r for r in self._records if isinstance(r, Span)]
+
+    def counts(self) -> list:
+        """The :class:`Count` records kept, oldest first."""
+        with self._lock:
+            return [r for r in self._records if isinstance(r, Count)]
+
+    def drain(self) -> tuple[list, list, int]:
+        """``(spans, counts, dropped)`` kept so far; empties the buffer."""
+        with self._lock:
+            recs, dropped = self._records, self.dropped
+            self._records, self.dropped = [], 0
+        return ([r for r in recs if isinstance(r, Span)],
+                [r for r in recs if isinstance(r, Count)], dropped)
 
     def report(self) -> str:
         lines = []
         with self._lock:
             for name in sorted(self.timings):
                 ts = self.timings[name]
-                line = (f"{name:24s} n={len(ts):4d} total={sum(ts):8.3f}s "
-                        f"mean={np.mean(ts)*1e3:8.2f}ms")
-                tp = self.throughput(name)
-                if tp:
-                    line += f"  {tp/1e6:9.2f} Msamp/s"
-                lines.append(line)
+                lines.append(f"{name:24s} n={len(ts):4d} "
+                             f"total={sum(ts):8.3f}s "
+                             f"mean={np.mean(ts)*1e3:8.2f}ms")
             for name, v in sorted(self.counters.items()):
-                if not name.endswith(".samples"):
-                    lines.append(f"{name:24s} = {v:g}")
+                lines.append(f"{name:24s} = {v:g}")
         return "\n".join(lines)
 
 
