@@ -2795,6 +2795,7 @@ def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
     device memory held, and the private tracker's run."""
     from tpu_gnss_torch.io.stream import FileSource1Bit, IQFileSource
     from tpu_gnss_torch import receiver
+    from tpu_gnss_torch.acquire import folded
     from tpu_gnss_torch.receiver import Receiver
     from tpu_gnss_torch.track import graph
     from tpu_gnss_torch.utils.metrics import METRICS
@@ -2820,10 +2821,11 @@ def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
               20.0, gates_e2e),
              ("hackrf int8 4 s", cfg9,
               lambda: IQFileSource(path9, cfg9.fs, fmt9), 4.0, gates_hackrf))
-    # the earlier phases' shared trackers (with their graphs) and the
-    # prewarms' record go: the next receiver of each geometry is the first
-    # of the process to ask
+    # the earlier phases' shared trackers (with their graphs), search
+    # tables and the prewarms' record go: the next receiver of each
+    # geometry is the first of the process to ask
     graph._SHARED.clear()
+    folded._TABLES.clear()
     receiver._WARMED.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

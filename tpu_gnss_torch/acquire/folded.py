@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -64,6 +66,63 @@ def period_replicas_np(fs: float, prns: tuple[int, ...]) -> np.ndarray:
     p = int(fs / 1000)
     chips = cacode.code_table()[np.array(prns) - 1]
     return cacode.resample(chips, fs, p)
+
+
+@functools.lru_cache(maxsize=2)
+def replica_spectra_np(fs: float, prns: tuple[int, ...], nf: int
+                       ) -> np.ndarray:
+    """``[n_sv, NF]`` float64 replica spectra on the host, the source of
+    both device tables; the last two kept, so that the tables of one key
+    come from one FFT."""
+    return np.fft.fft(period_replicas_np(fs, prns).astype(np.float64),
+                      n=nf, axis=-1)
+
+
+# the search's device tables, by key, for the process: a fresh Receiver
+# or FoldedSearcher must not rebuild and upload them (the reference's
+# _code_ffts_device / _mxu_code_planes_device, tpu_gnss/acquire/
+# folded.py:61-85); the least recently used beyond TABLE_KEYS is dropped
+TABLE_KEYS = 16
+_TABLES: OrderedDict = OrderedDict()
+_TABLES_LOCK = threading.Lock()
+
+
+def _table(key, build):
+    """The process's table ``key``; on a miss ``build()`` makes it under
+    the lock (so that two threads never build one key twice) and
+    ``acquire.table_builds`` counts it."""
+    with _TABLES_LOCK:
+        if key in _TABLES:
+            _TABLES.move_to_end(key)
+            return _TABLES[key]
+        got = _TABLES[key] = build()
+        METRICS.add("acquire.table_builds")
+        if len(_TABLES) > TABLE_KEYS:
+            _TABLES.popitem(last=False)
+        return got
+
+
+def replica_spectra(device: torch.device, fs: float,
+                    prns: tuple[int, ...], nf: int) -> torch.Tensor:
+    """``[n_sv, NF]`` complex64 replica spectra on ``device``, cast from
+    :func:`replica_spectra_np`; built once per process and key and shared
+    by every caller, so read only."""
+    return _table(("spectra", device, fs, prns, nf), lambda: torch.from_numpy(
+        replica_spectra_np(fs, prns, nf).astype(np.complex64)).to(device))
+
+
+def code_planes(device: torch.device, fs: float, prns: tuple[int, ...],
+                nf: int, period: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's wrapped code-spectrum planes ``[n_sv*n2, n1]`` float32
+    on ``device`` (:func:`tpu_gnss_torch.ops.mxu_corr.fold_code_planes_T`
+    of :func:`replica_spectra_np`); built once per process and key and
+    shared by every caller, so read only.  An NF the kernel cannot factor
+    raises."""
+    def build():
+        split_nf(nf)
+        cr, ci = fold_code_planes_T(replica_spectra_np(fs, prns, nf), period)
+        return torch.from_numpy(cr).to(device), torch.from_numpy(ci).to(device)
+    return _table(("planes", device, fs, prns, nf, period), build)
 
 
 def fft_len_for_period(p: int) -> int:
@@ -467,31 +526,20 @@ class FoldedSearcher:
         self.nf = fft_len_for_period(self.period)
         self.dops_hz = torch.from_numpy(doppler_grid_hz(
             cfg, min(cfg.dop_bin_hz, 1000.0 / n_coherent))).to(self.device)
-        self._code_ffts = None
-        self._cw_planes = None
         self._dops_pad = None     # (shards, padded grid) of the mesh search
-
-    def _spectra_np(self) -> np.ndarray:
-        reps = period_replicas_np(self.cfg.fs, tuple(self.cfg.prns))
-        return np.fft.fft(reps.astype(np.float64), n=self.nf, axis=-1)
 
     @property
     def code_ffts_p(self) -> torch.Tensor:
-        """``[n_sv, NF]`` complex64 replica spectra on the device (built
-        in float64 on the host, once per searcher)."""
-        if self._code_ffts is None:
-            self._code_ffts = torch.from_numpy(
-                self._spectra_np().astype(np.complex64)).to(self.device)
-        return self._code_ffts
+        """``[n_sv, NF]`` complex64 replica spectra on the device
+        (:func:`replica_spectra`, the process's; read only)."""
+        return replica_spectra(self.device, self.cfg.fs,
+                               tuple(self.cfg.prns), self.nf)
 
     def mxu_code_planes(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Wrapped code-spectrum planes ``[n_sv*n2, n1]`` for the kernel."""
-        if self._cw_planes is None:
-            split_nf(self.nf)   # raises a clear error for an unfactorable NF
-            cr, ci = fold_code_planes_T(self._spectra_np(), self.period)
-            self._cw_planes = (torch.from_numpy(cr).to(self.device),
-                               torch.from_numpy(ci).to(self.device))
-        return self._cw_planes
+        """Wrapped code-spectrum planes ``[n_sv*n2, n1]`` for the kernel
+        (:func:`code_planes`, the process's; read only)."""
+        return code_planes(self.device, self.cfg.fs, tuple(self.cfg.prns),
+                           self.nf, self.period)
 
     def _prep(self, bits, iq, n_noncoherent: int):
         """Validate input length; return (samples on device, from_bits)."""

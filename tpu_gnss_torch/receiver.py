@@ -483,8 +483,11 @@ class Receiver:
         picks, on an all-zero head of ``head_len`` samples ({0,1} samples
         when ``bits``), once per process for each search: it loads the
         kernel library and the CUDA modules of the search's ops and fills
-        the searcher's device tables and the cached DFT tables, so that
-        the real cold search finds them built.  The zero head gives no
+        the process's search tables (replica spectra and code planes,
+        :func:`tpu_gnss_torch.acquire.folded.replica_spectra` and
+        :func:`~tpu_gnss_torch.acquire.folded.code_planes`) and the cached
+        DFT tables, so that the real cold search of this and every later
+        receiver finds them built.  The zero head gives no
         detections (its NaN SNRs fail the threshold) and the call changes
         no receiver state.  Returns at once on the CPU; a failure
         raises."""

@@ -74,6 +74,8 @@ COUNTERS = (
      "fallback, re-acquisition (not the prewarm's)"),
     ("track.graph_misses", "tracker chunks run eagerly or captured, and "
      "prewarm captures"),
+    ("acquire.table_builds", "the search's replica spectra or kernel code "
+     "planes built for a new key (the prewarm's too)"),
 )
 #: records kept while recording; more are counted in ``Metrics.dropped``
 SPAN_BUFFER = 1 << 16
