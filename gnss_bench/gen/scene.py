@@ -12,6 +12,10 @@ synthesis, the noise and the quantization run on the card
 same float64 expressions as the recipe, so that a noiseless baseband
 equals ``build_scene(noise=0)`` to complex64 rounding.
 
+The sky is the e2e scene's, whose orbits take no account of the Earth
+(four of its six SVs stand below the truth position's horizon), or a
+visible one (:func:`visible_constellation`): the same orbits turned so
+that every SV stands above that horizon, as an almanac would predict.
 The seed only sets each capture's noise and, for an I/Q format, its
 common oscillator offset: every capture of every seed carries the same
 sky, so every run does the same work.
@@ -31,6 +35,11 @@ TRUTH_LLA = (52.95, -1.15, 48.0)
 T_OE = 302400.0
 T_RX0 = T_OE + 88.6          # receiver time of a capture's first sample
 SEG_S = 2.0                  # synthesis segment, seconds
+# where each SV of the visible sky stands from the truth position at
+# T_RX0: (azimuth, elevation) in degrees, spread round the sky that
+# orbits inclined at 55 degrees leave open from 53 N (none far north)
+VISIBLE_AZ_EL = ((160.0, 72.0), (70.0, 34.0), (115.0, 48.0),
+                 (200.0, 30.0), (255.0, 52.0), (300.0, 26.0))
 
 
 def make_constellation(n: int = 6, t_oe: float = T_OE) -> list:
@@ -45,6 +54,49 @@ def make_constellation(n: int = 6, t_oe: float = T_OE) -> list:
         c_us=5e-6, c_ic=-5e-8, c_is=9e-8,
         t_oe=t_oe, t_oc=t_oe, a_f0=1e-4 * (k - 2), a_f1=1e-11,
         t_gd=4.6e-9) for k in range(n)]
+
+
+def visible_constellation(n: int, rx_ecef) -> list:
+    """:func:`make_constellation`'s orbits with each SV's node and mean
+    anomaly at epoch (``omega_0``, ``m_0``) set so that at ``T_RX0`` SV
+    ``k`` stands at ``VISIBLE_AZ_EL[k]`` from ``rx_ecef`` (a spherical
+    Earth; even ``k`` on the ascending pass, odd on the descending, so
+    that the Dopplers take both signs; every other field as it was)."""
+    if n > len(VISIBLE_AZ_EL):
+        raise ValueError(f"a visible sky has at most {len(VISIBLE_AZ_EL)}"
+                         f" SVs, not {n}")
+    rx = np.asarray(rx_ecef, np.float64)
+    r0 = np.linalg.norm(rx)
+    lat0, lon0 = np.arcsin(rx[2] / r0), np.arctan2(rx[1], rx[0])
+    out = []
+    t_k = T_RX0 - T_OE
+    for k, eph in enumerate(make_constellation(n, t_oe=T_OE)):
+        az, el = np.radians(VISIBLE_AZ_EL[k])
+        a = eph.sqrt_a ** 2
+        # the Earth-central angle to the sub-satellite point, and that
+        # point's latitude and longitude
+        psi = np.pi / 2 - el - np.arcsin(r0 / a * np.cos(el))
+        lat = np.arcsin(np.sin(lat0) * np.cos(psi)
+                        + np.cos(lat0) * np.sin(psi) * np.cos(az))
+        lon = lon0 + np.arctan2(np.sin(az) * np.sin(psi) * np.cos(lat0),
+                                np.cos(psi) - np.sin(lat0) * np.sin(lat))
+        # argument of latitude on the pass, and the node's longitude in
+        # the Earth-fixed frame then
+        u = np.arcsin(np.sin(lat) / np.sin(eph.i_0))
+        if k % 2:
+            u = np.pi - u
+        node = lon - np.arctan2(np.cos(eph.i_0) * np.sin(u), np.cos(u))
+        v = u - eph.omega
+        e_anom = 2.0 * np.arctan(np.sqrt((1.0 - eph.e) / (1.0 + eph.e))
+                                 * np.tan(v / 2.0))
+        n_mean = np.sqrt(gps.MU_EARTH / a ** 3) + eph.dn
+        wrap = lambda x: float((x + np.pi) % (2.0 * np.pi) - np.pi)
+        out.append(dataclasses.replace(
+            eph,
+            omega_0=wrap(node - (eph.omega_dot - gps.OMEGA_E) * t_k
+                         + gps.OMEGA_E * T_OE),
+            m_0=wrap(e_anom - eph.e * np.sin(e_anom) - n_mean * t_k)))
+    return out
 
 
 def sv_time_knots(eph, rx_ecef, t_rx_knots) -> np.ndarray:
@@ -106,12 +158,15 @@ class Plan:
                          % gps.CODE_LEN_CHIPS for sv in self.svs])
 
 
-def plan(duration: float, fs: float, n_sv: int = 6) -> Plan:
+def plan(duration: float, fs: float, n_sv: int = 6, visible: bool = False
+         ) -> Plan:
     """Orbits, NAV streams and SV-time polynomials of a ``duration`` s
     capture at ``fs`` (tpu_gnss_torch/signal/scene.py:98-160, static
-    receiver, no dropout, fade or ramp)."""
-    ephs = make_constellation(n_sv, t_oe=T_OE)
+    receiver, no dropout, fade or ramp): the e2e scene's sky, or with
+    ``visible`` every SV above the horizon."""
     rx = gps.geodetic_to_ecef(*TRUTH_LLA)
+    ephs = (visible_constellation(n_sv, rx) if visible
+            else make_constellation(n_sv, t_oe=T_OE))
     t_knots = np.linspace(0, duration, max(41, int(3 * duration)))
     fit_deg = max(3, int(duration // 12))
     n_sf = int(np.ceil(duration / 6.0)) + 2

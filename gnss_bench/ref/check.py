@@ -28,7 +28,11 @@ Layer by layer:
   by itself: the seed the first step implies against the detection.
 * NAV: every decoded ephemeris field against the generator's ephemeris
   as the ICD quantizes it (exact).
-* PVT: every fix against the truth position.
+* PVT: every fix against the truth position, and its receiver time
+  against the capture's: the scene's receiver clock is exact, so a fix
+  taken at epoch ``e`` (1 ms) was taken at ``T_RX0 + e`` ms.  A NAV
+  anchor one bit (20 ms) off on every channel moves the clock bias by
+  20 ms and the position by only tens of metres.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from ..gen import gps
+from ..gen.scene import T_RX0
 
 LO_OFFLINE = ((0, 1, 1, 0), (1, 1, 0, 0))   # quadrature square-wave LO
 
@@ -474,4 +479,9 @@ def compare(res, if_offset: float, truth: Truth, path: str, cfg: dict,
             for s in res.solutions]
     if errs:
         out["fix_err_m"] = max(errs)
+        # a fix that names no epoch cannot be held to its time
+        out["fix_time_err_us"] = max(
+            math.inf if s.snap_epoch is None
+            else abs(s.t_rx - (T_RX0 + s.snap_epoch * 1e-3)) * 1e6
+            for s in res.solutions)
     return out

@@ -9,10 +9,13 @@ the capture format, the receiver's settings, the gates and the limits of
 the comparison) and a traffic mix (``traffic/<name>.json``: the capture
 length, how many distinct captures a run writes, the sample compared).
 Set-up makes the captures on the card from ``--seed`` (``gen/``), writes
-them under ``$TMPDIR``, and runs untimed captures of the cell's own shape.
-The window is a closed loop with one stream: a new
-``tpu_gnss_torch.receiver.Receiver`` per capture and ``process_source``
-over the next capture file, started until ``--seconds`` are used up.
+them under ``$TMPDIR`` (with a warm start, a previous session's
+checkpoint beside them), and runs untimed captures of the cell's own
+shape.  The window is a closed loop of ``streams`` threads in the one
+process: each stream runs a new ``tpu_gnss_torch.receiver.Receiver`` per
+capture and ``process_source`` over its next capture file, cold or
+restarted from the checkpoint, and starts captures until ``--seconds``
+are used up.
 After the window a sample of captures drawn from the seed is compared
 with the plain reference (``ref/check.py``); every capture is held to its
 configuration's gates, and one that misses them or raises counts in
@@ -40,6 +43,7 @@ import os
 import shutil
 import sys
 import tempfile
+import threading
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -55,7 +59,18 @@ LATE_MS = 1e12
 # what a traffic mix may set: every key is read, and one that is not
 # listed here is refused rather than left unheeded
 TRAFFIC_KEYS = {"capture_s", "distinct", "max_written_mb", "warm_captures",
-                "sample", "fix", "traced_captures"}
+                "sample", "fix", "traced_captures", "start", "streams",
+                "sky"}
+# how a capture starts: from nothing, or from a previous session's
+# checkpoint (``run_receiver --warm-start``)
+STARTS = ("cold", "warm")
+# the sky a capture carries: the e2e scene's orbits, which take no
+# account of the Earth, or the same turned above the truth position's
+# horizon (``gen/scene.visible_constellation``)
+SKIES = ("e2e", "visible")
+# the harness's own clock around a warm start's checkpoint load and
+# visibility prediction (``Captures.warm_args``), beside the stage timers
+WARM_STAGE = "gnss_bench.warm_start"
 # a configuration's loop settings; the program takes the first four as
 # options and fixes the last two itself (see ``unheeded``)
 LOOP_KEYS = {"pll_bn_hz", "dll_bn_hz", "epochs_per_step", "chunk_s",
@@ -118,6 +133,13 @@ def cell_spec(workload: str) -> tuple[dict, dict, dict, dict]:
         if set(got) != want:
             raise SystemExit(f"gnss_bench: {what} has keys {sorted(got)}; "
                              f"the harness reads exactly {sorted(want)}")
+    n = traffic["streams"]
+    if (traffic["start"] not in STARTS or traffic["sky"] not in SKIES
+            or isinstance(n, bool) or not isinstance(n, int) or n < 1):
+        raise SystemExit(f"gnss_bench: traffic {cell['traffic']} has start "
+                         f"{traffic['start']!r}, sky {traffic['sky']!r} and "
+                         f"streams {n!r}; start is one of {STARTS}, sky one "
+                         f"of {SKIES}, streams a whole number >= 1")
     return cell, cfg, traffic, manifest
 
 
@@ -148,6 +170,42 @@ def receiver_config(cfg: dict):
                           prns=tuple(cfg["prns"]))
 
 
+def write_checkpoint(plan, path: str) -> None:
+    """A previous session's checkpoint of the scene of ``plan``, as the
+    port's ``utils.checkpoint.save_state`` writes it: each satellite's
+    ephemeris as the ICD quantizes it (``ref/check.quantized``), an
+    almanac of the same orbits reduced from it (health 0), and the last
+    fix at the scene's position at the receiver time of a capture's first
+    sample, with no wall time, so that nothing ages with the host's
+    clock."""
+    from tpu_gnss_torch.nav.almanac import Almanac
+    from tpu_gnss_torch.nav.ephemeris import Ephemeris
+    from tpu_gnss_torch.utils.checkpoint import save_state
+
+    from gnss_bench.gen import scene
+    from gnss_bench.ref import check
+    ephs = {sv.prn: Ephemeris(**check.quantized(sv.eph)) for sv in plan.svs}
+    alms = {prn: Almanac.from_ephemeris(prn, e) for prn, e in ephs.items()}
+    save_state(path, ephemerides=ephs, almanac=alms,
+               meta=dict(last_fix=dict(ecef=[float(v) for v in plan.rx],
+                                       tow=scene.T_RX0)))
+
+
+def warm_start(path: str) -> dict:
+    """``process_source``'s warm arguments from the checkpoint at
+    ``path``, as ``cli/run_receiver._warm_start`` makes them: the saved
+    ephemerides, and the PRNs that the almanac predicts above a 5 degree
+    mask from the last fix at its TOW, over the next 30 minutes."""
+    from tpu_gnss_torch.nav.almanac import visible_prns
+    from tpu_gnss_torch.utils.checkpoint import load_state
+    state = load_state(path, device="cpu")
+    last = state["meta"]["last_fix"]
+    return dict(warm_ephemerides=state["ephemerides"],
+                search_prns=visible_prns(state["almanac"], last["ecef"],
+                                         float(last["tow"]), mask_deg=5.0,
+                                         margin_s=1800.0))
+
+
 class Captures:
     """The run's captures: made on ``device`` from the seed, written
     under ``tmp``, and removed by :meth:`close`."""
@@ -164,7 +222,8 @@ class Captures:
         per_mb = dur * fs * (0.125 if cfg["format"] == "1bit" else 2.0) / 1e6
         n = max(1, min(traffic["distinct"],
                        int(traffic["max_written_mb"] // per_mb)))
-        self.plan = scene.plan(dur, fs, cfg["scene"]["n_sv"])
+        self.plan = scene.plan(dur, fs, cfg["scene"]["n_sv"],
+                               visible=traffic["sky"] == "visible")
         rng = np.random.default_rng(seed)
         lo, hi = cfg["scene"]["offset_hz"]
         self.offsets = [float(rng.choice((-1.0, 1.0)) * rng.uniform(lo, hi))
@@ -190,6 +249,23 @@ class Captures:
             self.paths.append(path)
         del sig
         self.truth = [check.Truth(self.plan, off) for off in self.offsets]
+        self.checkpoint = None
+        if traffic["start"] == "warm":
+            self.checkpoint = os.path.join(tmp, "checkpoint.npz")
+            write_checkpoint(self.plan, self.checkpoint)
+        self.warm_s = 0.0           # seconds in warm_args, all streams
+        self._lock = threading.Lock()
+
+    def warm_args(self) -> dict:
+        """``process_source``'s warm arguments from the checkpoint (none
+        for a cold start), their seconds added to ``warm_s``."""
+        if self.checkpoint is None:
+            return {}
+        t0 = time.perf_counter()
+        out = warm_start(self.checkpoint)
+        with self._lock:
+            self.warm_s += time.perf_counter() - t0
+        return out
 
     def source(self, i: int):
         from tpu_gnss_torch.io.stream import FileSource1Bit, IQFileSource
@@ -205,17 +281,21 @@ class Captures:
 
 def one_capture(cfg: dict, caps: Captures, i: int, device):
     """One request: a new receiver and ``process_source`` over capture
-    ``i``.  Returns ``(result or None, receiver, wall s, error)``."""
+    ``i``; with a checkpoint, the checkpoint loaded and the visible PRNs
+    predicted first, inside the request's wall.  Returns ``(result or
+    None, receiver, wall s, error)``."""
     from tpu_gnss_torch.receiver import Receiver
     lp = cfg["loop"]
     t0 = time.perf_counter()
     try:
+        warm = caps.warm_args()
         recv = Receiver(receiver_config(cfg), pll_bn_hz=lp["pll_bn_hz"],
                         dll_bn_hz=lp["dll_bn_hz"],
                         n_coherent=cfg["n_coherent"],
                         epochs_per_step=lp["epochs_per_step"],
                         transfer_dtype=cfg["transfer"], device=device)
-        res = recv.process_source(caps.source(i), chunk_s=lp["chunk_s"])
+        res = recv.process_source(caps.source(i), chunk_s=lp["chunk_s"],
+                                  **warm)
     except Exception as exc:          # a failed request, reported
         return None, None, time.perf_counter() - t0, repr(exc)
     return res, recv, time.perf_counter() - t0, None
@@ -236,9 +316,12 @@ def layer_targets() -> list:
     """The program's calls into each layer that a traced block wraps in
     spans of the benchmark's own: ``(owner, attribute, layer)``."""
     from tpu_gnss_torch import receiver as rx
+    from tpu_gnss_torch.nav import almanac
     from tpu_gnss_torch.track import graph
-    from tpu_gnss_torch.utils import xfer
-    return [(rx.Receiver, "__init__", "receiver_init"),
+    from tpu_gnss_torch.utils import checkpoint, xfer
+    return [(checkpoint, "load_state", "checkpoint"),
+            (almanac, "visible_prns", "checkpoint"),
+            (rx.Receiver, "__init__", "receiver_init"),
             (rx.Receiver, "_cold_detections", "acquire"),
             (rx.Receiver, "_transfer", "link"),
             (rx.Receiver, "_mix_chunk_packed", "link"),
@@ -248,29 +331,35 @@ def layer_targets() -> list:
             (rx.Receiver, "_solve_at", "pvt")]
 
 
-def stage_seconds() -> dict:
+def stage_seconds(caps: Captures) -> dict:
+    """The program's stage seconds so far, and the run's warm-start
+    seconds under ``WARM_STAGE``."""
     from tpu_gnss_torch.utils.metrics import METRICS
-    return {k: float(sum(METRICS.timings.get(k, []))) for k in STAGES}
+    out = {k: float(sum(METRICS.timings.get(k, []))) for k in STAGES}
+    out[WARM_STAGE] = caps.warm_s
+    return out
 
 
 class Tally:
     """What the window's captures gave: walls, failures, seconds of
     signal, the stage seconds and count of the untraced captures, and a
     uniform sample of ``k`` untraced results drawn from ``rng``
-    (reservoir sampling)."""
+    (reservoir sampling).  Streams update it under ``lock``."""
 
     def __init__(self, k: int, rng):
         self.k, self.rng = k, rng
+        self.lock = threading.Lock()
         self.walls, self.errors, self.missed = [], [], []
         self.n_missed = 0            # captures that missed a gate
         self.signal_s = 0.0
-        self.stages = dict.fromkeys(STAGES, 0.0)
+        self.stages = dict.fromkeys(STAGES + (WARM_STAGE,), 0.0)
         self.n_untraced, self.signal_untraced = 0, 0.0
         self.sample = []             # (index, result, offset estimate)
 
-    def add(self, i, res, recv, wall, err, gates, capture_s, before=None):
-        """Record capture ``i``; ``before``: the stage seconds before it,
-        for an untraced capture."""
+    def add(self, i, res, recv, wall, err, gates, capture_s, untraced):
+        """Record capture ``i``; an ``untraced`` one feeds the sample and
+        counts towards the stage-timer metrics, whose seconds are taken
+        over each untraced phase as a whole (:meth:`add_stages`)."""
         self.walls.append(wall if err is None else math.inf)
         if err is not None:
             self.errors.append(err)
@@ -279,11 +368,8 @@ class Tally:
         got = gates(res, recv._if_offset)
         self.n_missed += bool(got)
         self.missed.extend(f"capture {i}: {m}" for m in got)
-        if before is None:
+        if not untraced:
             return
-        after = stage_seconds()
-        for k in STAGES:
-            self.stages[k] += after[k] - before[k]
         self.n_untraced += 1
         self.signal_untraced += capture_s
         item = (i, res, float(recv._if_offset))
@@ -293,6 +379,53 @@ class Tally:
             j = int(self.rng.integers(0, self.n_untraced))
             if j < self.k:
                 self.sample[j] = item
+
+    def add_stages(self, before: dict, after: dict) -> None:
+        for k in self.stages:
+            self.stages[k] += after[k] - before[k]
+
+
+def run_streams(n: int, nxt: list, until, capture, budget=None) -> None:
+    """``n`` closed loops at once, started together: stream 0 on the
+    caller's thread, each other on a thread of its own.  Stream ``s``
+    runs ``capture(i)`` for ``i = nxt[s], nxt[s] + n, ...`` while
+    ``until()`` holds and, with ``budget``, while that many captures of
+    all the streams together are left (the first always runs).  ``nxt``
+    is advanced in place; the first error raised in a stream is raised
+    here once every stream has ended."""
+    start = threading.Barrier(n)
+    lock = threading.Lock()
+    left = [budget]
+    errors = []
+
+    def stream(s):
+        try:
+            start.wait()
+            while True:
+                if budget is None:
+                    if not until():
+                        return
+                else:
+                    with lock:
+                        if not left[0] or (left[0] < budget
+                                           and not until()):
+                            return
+                        left[0] -= 1
+                i = nxt[s]
+                nxt[s] += n
+                capture(i)
+        except BaseException as exc:      # raised in the caller
+            errors.append(exc)
+    threads = [threading.Thread(target=stream, args=(s,),
+                                name=f"gnss_bench.stream{s}")
+               for s in range(1, n)]
+    for t in threads:
+        t.start()
+    stream(0)
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def held(numbers: dict, limits: dict) -> tuple[dict, list]:
@@ -349,29 +482,40 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int,
               f"{t_in:.2f}, captures {t_caps - t_in:.2f}, warm capture(s) "
               f"{t_warm - t_caps:.2f}", file=sys.stderr)
         t_w0 = time.perf_counter()
-        t_end = t_w0
-        i = 0
-        while time.perf_counter() - t_w0 < seconds:
-            if (trace and summary is None
-                    and time.perf_counter() - t_w0 >= 0.4 * seconds):
-                # a fixed number of whole captures, profiled
-                with tr.profiled(trace_path), tr.spans(layer_targets()):
-                    for n_tr in range(traffic["traced_captures"]):
-                        if n_tr and time.perf_counter() - t_w0 >= seconds:
-                            break
-                        tally.add(i, *one_capture(cfg, caps, i, device),
-                                  gates(i), traffic["capture_s"])
-                        i += 1
-                t_end = time.perf_counter()
-                summary = tr.read(trace_path)
-                continue
-            before = stage_seconds()
+        n_streams = traffic["streams"]
+        nxt = list(range(n_streams))
+        last = [t_w0]               # the latest finish
+
+        def capture(i, untraced):
             got = one_capture(cfg, caps, i, device)
-            t_end = time.perf_counter()
-            tally.add(i, *got, gates(i), traffic["capture_s"], before)
-            del got
-            i += 1
-        window_s = t_end - t_w0
+            with tally.lock:
+                last[0] = max(last[0], time.perf_counter())
+                tally.add(i, *got, gates(i), traffic["capture_s"],
+                          untraced)
+
+        def untraced_until(t_stop):
+            # the stage seconds of the phase as a whole: with several
+            # streams a capture's own before and after would count
+            # other streams' time
+            before = stage_seconds(caps)
+            run_streams(n_streams, nxt,
+                        lambda: time.perf_counter() - t_w0 < t_stop,
+                        lambda i: capture(i, True))
+            tally.add_stages(before, stage_seconds(caps))
+        if trace:
+            untraced_until(0.4 * seconds)
+            # a fixed number of whole captures over the streams, profiled
+            # (on every thread where streams run on threads of their own)
+            with (tr.profiled(trace_path, all_threads=n_streams > 1),
+                  tr.spans(layer_targets())):
+                run_streams(n_streams, nxt,
+                            lambda: time.perf_counter() - t_w0 < seconds,
+                            lambda i: capture(i, False),
+                            traffic["traced_captures"])
+            summary = tr.read(trace_path)
+        untraced_until(seconds)
+        window_s = last[0] - t_w0
+        t_cmp = time.perf_counter()
         peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
         gc.collect()
         if cuda:
@@ -389,6 +533,9 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int,
                     into[k] = max(into.get(k, -math.inf), v)
     finally:
         caps.close()
+    print(f"gnss_bench: window {window_s:.2f} s, {len(tally.walls)} "
+          f"captures; comparison {time.perf_counter() - t_cmp:.2f} s",
+          file=sys.stderr)
 
     n_failed = len(tally.errors) + tally.n_missed
     checks, bad = held(numbers, cfg["limits"])
@@ -414,11 +561,14 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int,
                n_captures=tally.n_untraced, trace=summary, cfg=cfg,
                loop=cfg["loop"], kind=kind)
     out["metrics"] = {}
+    t_read = time.perf_counter()
     for m in per_layer:
         v = reader(m["name"])(ctx)
         if v is not None:
             out["metrics"][m["name"]] = {"value": float(v),
                                          "unit": m["unit"]}
+    print(f"gnss_bench: per-layer readers {time.perf_counter() - t_read:.2f}"
+          " s", file=sys.stderr)
     if summary is not None:
         out["busy_s"], out["window_s"] = summary["busy_s"], summary["window_s"]
         out["breakdown"] = dict(device_ops=summary["device_ops"],

@@ -21,9 +21,13 @@ def pytest_configure(config):
         "markers", "chip: needs an NVIDIA card; skips without one")
 
 
-def tiny_cell(fmt: str = "1bit", capture_s: float = 4.0, sample: int = 1):
+def tiny_cell(fmt: str = "1bit", capture_s: float = 4.0, sample: int = 1,
+              start: str = "cold", streams: int = 1, distinct: int = 1,
+              warm_captures: int = 0, sky: str = "e2e"):
     """A test-size cell: the configuration's own file at 2.048 Msps (an
-    e2e-width search), one 4 s capture, compared whole."""
+    e2e-width search), by default one 4 s capture of the e2e sky from a
+    cold start in one stream, compared whole.  A warm start is held to a
+    fix, as a capture of 20 s or more is."""
     name = "nottingham_1bit" if fmt == "1bit" else "hackrf_iq8"
     with open(os.path.join(ROOT, "gnss_bench", "configs",
                            name + ".json")) as f:
@@ -32,9 +36,11 @@ def tiny_cell(fmt: str = "1bit", capture_s: float = 4.0, sample: int = 1):
     if fmt == "iq8":
         cfg.update(max_fo=20000.0)
         cfg["scene"] = dict(cfg["scene"], offset_hz=[12000.0, 15000.0])
-    traffic = dict(capture_s=capture_s,
-                   distinct=1, max_written_mb=100, warm_captures=0,
-                   sample=sample, fix=capture_s >= 20.0, traced_captures=1)
+    traffic = dict(capture_s=capture_s, distinct=distinct,
+                   max_written_mb=100, warm_captures=warm_captures,
+                   sample=sample, fix=capture_s >= 20.0 or start == "warm",
+                   traced_captures=1, start=start, streams=streams,
+                   sky=sky)
     return dict(name="test." + fmt, chips=1), cfg, traffic
 
 

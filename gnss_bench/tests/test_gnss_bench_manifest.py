@@ -114,7 +114,10 @@ def test_metrics(m):
             assert x["unit"] == "%"
         layers.setdefault(x["name"].split(".")[0], set()).add(x["layer"])
     assert all(len(v) == 1 for v in layers.values())
-    assert len(m["per_layer"]) == 7
+    # every entry has its reader, and every reader its entry
+    readers = {f[:-3] for f in os.listdir(os.path.join(
+        ROOT, "gnss_bench", "metrics")) if f.endswith(".py")}
+    assert readers == {x["name"] for x in m["per_layer"]}
 
 
 def test_every_key_of_a_mix_and_a_loop_is_read(m):
@@ -126,7 +129,7 @@ def test_every_key_of_a_mix_and_a_loop_is_read(m):
         assert cfg["transfer"] in ("int8", "int4", "int2", "float32")
 
 
-@pytest.mark.parametrize("where, key", [("traffic", "streams"),
+@pytest.mark.parametrize("where, key", [("traffic", "arrival_hz"),
                                         ("configs", "loop_kind")])
 def test_a_key_the_harness_does_not_read_is_refused(monkeypatch, where,
                                                     key):

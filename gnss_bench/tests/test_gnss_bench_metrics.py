@@ -52,6 +52,64 @@ def test_summary_of_a_fake_trace(tmp_path):
     assert not p.exists()
 
 
+def _scanned_labels(events):
+    """The idle gaps' labels as a scan of every host event at each gap's
+    middle finds them: the plain version of ``summarize``'s sweep."""
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    block = next(e for e in xs if e["name"] == trace.BLOCK)
+    b0, b1 = block["ts"], block["ts"] + block["dur"]
+    dev = trace.merged([(e["ts"], min(e["ts"] + e["dur"], b1)) for e in xs
+                        if e["cat"] in trace.DEVICE_CATS
+                        and b0 <= e["ts"] < b1])
+    host = [e for e in xs if e["cat"] in trace.HOST_CATS
+            and e["name"] != trace.BLOCK]
+    main = [e for e in host if e["tid"] == block["tid"]]
+    at = lambda evs, t: [e for e in evs if e["ts"] <= t < e["ts"] + e["dur"]]
+    out, edge = {}, b0
+    for s0, e0 in dev + [[b1, b1]]:
+        if s0 > edge:
+            mid = 0.5 * (edge + s0)
+            label = trace.gap_label(at(main, mid) or at(host, mid))
+            out[label] = out.get(label, 0.0) + (s0 - edge) * 1e-6
+        edge = max(edge, e0)
+    return out
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_the_gap_sweep_labels_as_a_scan_does(seed):
+    # nested host events on three threads, spans among them, and device
+    # intervals with gaps between: the sweep and the scan agree gap by gap
+    import random
+    rng = random.Random(seed)
+    events = [ev(trace.BLOCK, 0.0, 10000.0, "user_annotation", tid=1)]
+
+    def nest(t0, t1, tid, depth):
+        t = t0
+        while depth < 4 and t < t1:
+            a = t + rng.uniform(0, 200)
+            b = min(t1, a + rng.uniform(1, 1500))
+            if a >= b:
+                break
+            name = (trace.SPAN + f"l{depth}" if rng.random() < 0.3
+                    else f"op{rng.randrange(9)}")
+            events.append(ev(name, a, b - a, "cpu_op", tid=tid))
+            nest(a, b, tid, depth + 1)
+            t = b
+    for tid in (1, 2, 3):
+        nest(0.0, 10000.0, tid, 0)
+    t = 0.0
+    while t < 10000.0:
+        t += rng.uniform(0, 300)
+        d = rng.uniform(1, 100)
+        events.append(ev(f"k{rng.randrange(3)}", t, d, "kernel"))
+        t += d
+    rng.shuffle(events)
+    got = dict(trace.summarize(events, top=10 ** 6)["idle_gaps"])
+    want = _scanned_labels(events)
+    assert got.keys() == want.keys()
+    assert all(got[k] == pytest.approx(want[k]) for k in want)
+
+
 def test_readers_on_the_fake_trace():
     from gnss_bench.roofline import search, track
     from gnss_bench import roofline

@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import heapq
 import json
 import os
+import sys
+import time
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
@@ -37,14 +40,22 @@ def merged(spans) -> list:
 
 
 @contextlib.contextmanager
-def profiled(trace_path: str):
+def profiled(trace_path: str, all_threads: bool = False):
     """Run the block under ``torch.profiler`` and write its Chrome trace
-    to ``trace_path``; the block itself is marked ``BLOCK``."""
+    to ``trace_path``; the block itself is marked ``BLOCK``.
+    ``all_threads``: record the host events of every thread, not only
+    the caller's, for a block whose captures run on threads of their
+    own."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
+    kw = {}
+    if all_threads:
+        from torch.profiler import _ExperimentalConfig
+        kw["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True)
+    with profile(activities=acts, **kw) as prof:
         with record_function(BLOCK):
             yield
         if cuda:
@@ -90,13 +101,29 @@ def short(name: str) -> str:
     return name.rstrip()[:NAME_CHARS]
 
 
-def gap_label(main: list, host: list, t: float) -> str:
-    """What the host was doing at time ``t``: the innermost benchmark
-    span and the innermost other operation running then, on the caller's
-    thread where it ran any (``main``), else on any thread."""
-    at = lambda evs: [e for e in evs if float(e["ts"]) <= t
-                      < float(e["ts"]) + float(e["dur"])]
-    inner = at(main) or at(host)
+class Open:
+    """The events of ``evs`` open at a time that only moves forward:
+    :meth:`at` gives those with ``ts <= t < ts + dur``, in their order in
+    ``evs``, at the cost of the events that opened or closed since."""
+
+    def __init__(self, evs: list):
+        self.todo = sorted(((float(e["ts"]), i, e)
+                            for i, e in enumerate(evs)), reverse=True)
+        self.open = []              # heap of (end, index, event)
+
+    def at(self, t: float) -> list:
+        while self.todo and self.todo[-1][0] <= t:
+            s0, i, e = self.todo.pop()
+            heapq.heappush(self.open, (s0 + float(e["dur"]), i, e))
+        while self.open and self.open[0][0] <= t:
+            heapq.heappop(self.open)
+        return [e for _, _, e in sorted(self.open, key=lambda x: x[1])]
+
+
+def gap_label(inner: list) -> str:
+    """What the host was doing at a gap's middle, from the host events
+    open then (``inner``): the innermost benchmark span and the innermost
+    other operation."""
     spans = [e for e in inner if e["name"].startswith(SPAN)]
     ops = [e for e in inner if not e["name"].startswith(SPAN)]
     pick = lambda evs: short(min(evs, key=lambda e: float(e["dur"]))["name"])
@@ -132,10 +159,12 @@ def summarize(events: list, top: int = 10) -> dict:
     main = [e for e in host if e.get("tid") == block[0].get("tid")]
     gaps: dict = {}
     edge = b0
+    on_main, on_host = Open(main), Open(host)
     for s0, e0 in merged(spans) + [[b1, b1]]:
         if s0 > edge:
             mid = 0.5 * (edge + s0)
-            label = gap_label(main, host, mid)
+            # on the caller's thread where it ran any, else on any thread
+            label = gap_label(on_main.at(mid) or on_host.at(mid))
             gaps[label] = gaps.get(label, 0.0) + (s0 - edge) * 1e-6
         edge = max(edge, e0)
     rank = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:top]
@@ -149,11 +178,16 @@ def summarize(events: list, top: int = 10) -> dict:
 
 
 def read(trace_path: str) -> dict:
-    """:func:`summarize` of a Chrome trace file, which is then removed."""
+    """:func:`summarize` of a Chrome trace file, which is then removed;
+    its seconds on stderr."""
+    t0 = time.perf_counter()
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     os.remove(trace_path)
-    return summarize(events)
+    out = summarize(events)
+    print(f"gnss_bench: trace read {time.perf_counter() - t0:.2f} s",
+          file=sys.stderr)
+    return out
 
 
 def kernel_stats(summary: dict, names) -> tuple[int, float]:
