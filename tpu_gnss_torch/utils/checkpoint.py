@@ -1,5 +1,6 @@
-# Copied from tpu_gnss/utils/checkpoint.py:1-126; load_state builds the
-# port's ChannelState on an explicit device.
+# Copied from tpu_gnss/utils/checkpoint.py:1-126; load_state reads each
+# npz member once and builds the port's ChannelState on an explicit
+# device.
 """Receiver state checkpoint / resume.
 
 The reference has no persistence at all — ephemerides live in RAM and die
@@ -23,6 +24,7 @@ import torch
 from ..nav.almanac import Almanac
 from ..nav.ephemeris import Ephemeris
 from ..track.channel import _BOOL_FIELDS, ChannelState, init_state
+from .metrics import METRICS
 
 
 _EPH_FIELDS = [f.name for f in dataclasses.fields(Ephemeris)
@@ -85,39 +87,56 @@ def save_state(path: str, *, ephemerides: Optional[dict] = None,
     np.savez_compressed(path, **payload)
 
 
+def _read_npz(path: str) -> dict:
+    """``{key: array}`` of every member of the ``.npz`` at ``path``, as
+    ``np.load(path, allow_pickle=False)[key]`` gives it, each member read
+    once through numpy's reader (an object-dtype member raises
+    ``ValueError``) and counted in ``checkpoint.member_reads``; the file
+    is closed before it returns."""
+    arrays = {}
+    with np.load(path, allow_pickle=False) as z:
+        for k in z.files:
+            arrays[k] = z[k]
+            METRICS.add("checkpoint.member_reads")
+    return arrays
+
+
 def load_state(path: str, *, device="cuda") -> dict:
     """Load a checkpoint; returns dict with the same keys save_state took.
 
-    ``chan_*`` arrays become the port's ChannelState on ``device``; the
-    device is touched only when the file holds channel state.
+    Each member is read once (:func:`_read_npz`), and the records are
+    built from whole columns.  ``chan_*`` arrays become the port's ChannelState on
+    ``device``; the device is touched only when the file holds channel
+    state.
     """
-    z = np.load(path, allow_pickle=False)
+    z = _read_npz(path)
     out: dict = {}
     if "eph_prns" in z:
+        # field added after this checkpoint: absent here, its default kept
+        cols = {name: z[f"eph_{name}"].astype(np.float64).tolist()
+                for name in _EPH_FIELDS if f"eph_{name}" in z}
+        alpha, beta = list(z["eph_alpha"]), list(z["eph_beta"])
         ephs = {}
-        prns = z["eph_prns"]
-        for i, prn in enumerate(prns):
+        for i, prn in enumerate(z["eph_prns"].tolist()):
             e = Ephemeris()
-            for name in _EPH_FIELDS:
-                if f"eph_{name}" not in z:
-                    continue   # field added after this checkpoint: default
-                v = float(z[f"eph_{name}"][i])
+            for name, col in cols.items():
+                v = col[i]
                 setattr(e, name, bool(v) if name == "has_utc"
                         else int(v) if name == "tow" else v)
-            e.alpha = tuple(z["eph_alpha"][i])
-            e.beta = tuple(z["eph_beta"][i])
+            e.alpha, e.beta = tuple(alpha[i]), tuple(beta[i])
             ephs[int(prn)] = e
         out["ephemerides"] = ephs
     if "alm_prns" in z:
+        cols = {f.name: z[f"alm_{f.name}"].astype(np.float64).tolist()
+                for f in dataclasses.fields(Almanac) if f.name != "prn"}
         alms = {}
-        for i, prn in enumerate(z["alm_prns"]):
+        for i, prn in enumerate(z["alm_prns"].tolist()):
             a = Almanac(prn=int(prn))
-            for f in dataclasses.fields(Almanac):
-                if f.name != "prn":
-                    setattr(a, f.name, float(z[f"alm_{f.name}"][i]))
+            for name, col in cols.items():
+                setattr(a, name, col[i])
             alms[int(prn)] = a
         out["almanac"] = alms
-    chan = {k[5:]: z[k] for k in z.files if k.startswith("chan_")}
+    chan = {k[5:]: v for k, v in z.items() if k.startswith("chan_")}
     if chan:
         n_chan = len(next(iter(chan.values())))
         # fields added after a checkpoint was written keep their defaults

@@ -76,6 +76,8 @@ COUNTERS = (
      "prewarm captures"),
     ("acquire.table_builds", "the search's replica spectra or kernel code "
      "planes built for a new key (the prewarm's too)"),
+    ("checkpoint.member_reads", "npz members a checkpoint load read, each "
+     "once, added once per load"),
 )
 #: records kept while recording; more are counted in ``Metrics.dropped``
 SPAN_BUFFER = 1 << 16
