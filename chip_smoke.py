@@ -163,9 +163,11 @@ prints no result line):
    kernels and copies per 10 ms step of the e2e receiver (at most 3.5:
    two in the step, the rest the chunk's copies and the search); (d)
    ``loop_update``'s time, launches per second of signal and bound; (e)
-   the receiver's prewarm and the process's shared trackers: the shared
-   trackers and the record of the prewarms that ran dropped (so the next
-   receiver of each geometry is the first of the process to ask), then
+   the receiver's prewarm and the process's shared trackers: everything
+   the port builds once per process dropped by ``tpu_gnss_torch.cache.
+   clear()`` (the shared trackers, the search tables, the kernels' device
+   tables and the record of the prewarms that ran, so the next receiver of
+   each geometry really is the first of the process to ask), then
    phase 3's e2e 20 s 1-bit capture and
    phase 9's hackrf 4 s int8 scene through two fresh receivers each,
    recording the program's spans, each run's tracker
@@ -2790,12 +2792,13 @@ def log_cold_spans(name, spans) -> None:
 
 def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
     """Phase 18e: the receiver's prewarm and the process's shared
-    trackers (module docstring).  Returns, per geometry, the two
+    trackers (module docstring), from :func:`tpu_gnss_torch.cache.clear`:
+    the kernels' device tables are dropped too, so the phase's first
+    receiver really is the process's first.  Returns, per geometry, the two
     receivers' tracker counts, prewarm and wait seconds, walls and the
     device memory held, and the private tracker's run."""
+    from tpu_gnss_torch import cache
     from tpu_gnss_torch.io.stream import FileSource1Bit, IQFileSource
-    from tpu_gnss_torch import receiver
-    from tpu_gnss_torch.acquire import folded
     from tpu_gnss_torch.receiver import Receiver
     from tpu_gnss_torch.track import graph
     from tpu_gnss_torch.utils.metrics import METRICS
@@ -2822,11 +2825,9 @@ def prewarm_phase(cfg, path_e2e, rx, scene9, runs9, dev):
              ("hackrf int8 4 s", cfg9,
               lambda: IQFileSource(path9, cfg9.fs, fmt9), 4.0, gates_hackrf))
     # the earlier phases' shared trackers (with their graphs), search
-    # tables and the prewarms' record go: the next receiver of each
-    # geometry is the first of the process to ask
-    graph._SHARED.clear()
-    folded._TABLES.clear()
-    receiver._WARMED.clear()
+    # tables, kernels' device tables and the prewarms' record go: the next
+    # receiver of each geometry is the first of the process to ask
+    cache.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved(dev)

@@ -186,12 +186,14 @@ def test_the_cold_starts_prewarm_spans_appear_once(recorded):
 
 
 def test_every_name_the_port_opens_is_registered():
-    """Each ``METRICS.stage``/``METRICS.add`` literal in the package is in
+    """Each ``METRICS.stage``/``METRICS.add`` literal in the package (and
+    each ``counter=`` literal, which ``cache.once`` adds to) is in
     ``SPANS``/``COUNTERS``, and each registered name is opened or added
     somewhere, once in the registry."""
     text = "\n".join(p.read_text() for p in PACKAGE.rglob("*.py"))
     opened = set(re.findall(r'METRICS\.stage\(\s*"([^"]+)"', text))
-    added = set(re.findall(r'METRICS\.add\(\s*"([^"]+)"', text))
+    added = set(re.findall(r'(?:METRICS\.add\(\s*|counter=)"([^"]+)"',
+                           text))
     counters = [n for n, _ in metrics.COUNTERS]
     assert len(NAMES) == len(metrics.SPANS)
     assert len(set(counters)) == len(counters)

@@ -30,13 +30,12 @@ from __future__ import annotations
 
 import functools
 import math
-import threading
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import cache
 from ..config import ReceiverConfig
 from ..device import full_precision_matmul, resolve_device
 from ..ops.mxu_corr import (fold_code_planes_T, fold_corr_reduce,
@@ -81,25 +80,10 @@ def replica_spectra_np(fs: float, prns: tuple[int, ...], nf: int
 # the search's device tables, by key, for the process: a fresh Receiver
 # or FoldedSearcher must not rebuild and upload them (the reference's
 # _code_ffts_device / _mxu_code_planes_device, tpu_gnss/acquire/
-# folded.py:61-85); the least recently used beyond TABLE_KEYS is dropped
+# folded.py:61-85); the least recently used beyond TABLE_KEYS is dropped,
+# and acquire.table_builds counts each build
 TABLE_KEYS = 16
-_TABLES: OrderedDict = OrderedDict()
-_TABLES_LOCK = threading.Lock()
-
-
-def _table(key, build):
-    """The process's table ``key``; on a miss ``build()`` makes it under
-    the lock (so that two threads never build one key twice) and
-    ``acquire.table_builds`` counts it."""
-    with _TABLES_LOCK:
-        if key in _TABLES:
-            _TABLES.move_to_end(key)
-            return _TABLES[key]
-        got = _TABLES[key] = build()
-        METRICS.add("acquire.table_builds")
-        if len(_TABLES) > TABLE_KEYS:
-            _TABLES.popitem(last=False)
-        return got
+_TABLES = cache.store()
 
 
 def replica_spectra(device: torch.device, fs: float,
@@ -107,8 +91,10 @@ def replica_spectra(device: torch.device, fs: float,
     """``[n_sv, NF]`` complex64 replica spectra on ``device``, cast from
     :func:`replica_spectra_np`; built once per process and key and shared
     by every caller, so read only."""
-    return _table(("spectra", device, fs, prns, nf), lambda: torch.from_numpy(
-        replica_spectra_np(fs, prns, nf).astype(np.complex64)).to(device))
+    return cache.once(
+        _TABLES, ("spectra", device, fs, prns, nf), lambda: torch.from_numpy(
+            replica_spectra_np(fs, prns, nf).astype(np.complex64)).to(device),
+        bound=TABLE_KEYS, counter="acquire.table_builds")
 
 
 def code_planes(device: torch.device, fs: float, prns: tuple[int, ...],
@@ -122,7 +108,8 @@ def code_planes(device: torch.device, fs: float, prns: tuple[int, ...],
         split_nf(nf)
         cr, ci = fold_code_planes_T(replica_spectra_np(fs, prns, nf), period)
         return torch.from_numpy(cr).to(device), torch.from_numpy(ci).to(device)
-    return _table(("planes", device, fs, prns, nf, period), build)
+    return cache.once(_TABLES, ("planes", device, fs, prns, nf, period),
+                      build, bound=TABLE_KEYS, counter="acquire.table_builds")
 
 
 def fft_len_for_period(p: int) -> int:

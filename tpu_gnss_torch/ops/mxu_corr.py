@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import cache, kernels
 
 
 def split_nf(nf: int) -> tuple[int, int]:
@@ -59,7 +59,7 @@ def wrap_spectrum(c: np.ndarray, period: int) -> np.ndarray:
     return c
 
 
-@functools.lru_cache(maxsize=16)
+@cache.built_once(bound=16)
 def idft_tables(nf: int, device: str) -> tuple:
     """``(e1 [n1, n1], tw [n1, n2], e2 [n2, n2])`` inverse four-step DFT
     tables as contiguous complex64 tensors on ``device``, built in float64
@@ -118,7 +118,7 @@ def four_step_np(nf: int, period: int) -> dict:
         keff=np.where(k_grid >= nf // 2, k_grid - nf, k_grid))
 
 
-@functools.lru_cache(maxsize=16)
+@cache.built_once(bound=16)
 def fused_tables(nf: int, period: int, device: str) -> tuple:
     """``(u_rows, q_cols, f2, wt, f1, e1, tw, e2)`` with the tables as
     contiguous complex64 tensors on ``device`` (cast from float64)."""
@@ -175,7 +175,7 @@ def b_fragments(b: np.ndarray) -> np.ndarray:
     return tf32_round(np.stack([f0.real, f1.real, f0.imag, f1.imag], -1))
 
 
-@functools.lru_cache(maxsize=16)
+@cache.built_once(bound=16)
 def mma_tables(nf: int, period: int, device: str) -> tuple:
     """``(forward, inverse)`` tables of the tensor-core kernels, each
     ``(a1, tw, b2)`` on ``device``: ``a1`` from :func:`a_fragments`, ``tw``

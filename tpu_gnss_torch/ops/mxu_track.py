@@ -31,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import cache, kernels
 from .mxu_corr import four_step_np, mma_tables, split_nf, stage_smem
 
 
@@ -46,7 +46,7 @@ def dense_taps(nf: int, period: int, dsamp: float) -> np.ndarray:
                                -dsamp + period)])
 
 
-@functools.lru_cache(maxsize=16)
+@cache.built_once(bound=16)
 def track_tables(nf: int, period: int, dsamp: float, device: str) -> tuple:
     """``(u_rows, f2, wt, f1, taps, keff)`` on ``device``: the forward
     four-step factors and tap grids as complex64, ``keff`` as int64, all
@@ -60,7 +60,7 @@ def track_tables(nf: int, period: int, dsamp: float, device: str) -> tuple:
             torch.from_numpy(t["keff"].astype(np.int64)).to(dev))
 
 
-@functools.lru_cache(maxsize=16)
+@cache.built_once(bound=16)
 def tap_factors(nf: int, period: int, dsamp: float, device: str
                 ) -> torch.Tensor:
     """``[4, n1 + n2 + 1]`` complex64 factors of the tap grids of

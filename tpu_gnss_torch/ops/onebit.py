@@ -23,12 +23,10 @@ lanes) is not ported.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import cache, kernels
 from ..acquire.search import PHASE_SPLIT, mix_baseband
 from ..io.loaders import LO_TABLES
 
@@ -80,7 +78,7 @@ def mix_packed_plain(words: torch.Tensor, *, n_bits: int, lo_rate: float,
                         phase0_quarters=phase0_quarters)
 
 
-@functools.lru_cache(maxsize=16)
+@cache.built_once(bound=16)
 def part2_table(lo_rate: float, device: str) -> torch.Tensor:
     """``fmod(float32(r) * float32(lo_rate), 4)`` for r < 4096, a float32
     tensor on ``device`` built on the host with numpy: the in-segment part

@@ -73,6 +73,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import cache
 from .acquire.folded import FoldedSearcher, fft_len_for_period
 from .acquire.search import mix_baseband
 from .cli.nmea_out import sat_geometry
@@ -103,20 +104,7 @@ ACQ_ENGINES = ("auto", "mxu", "xla")
 # kernel library, the cached tables, the CUDA modules and FFT plans of its
 # ops) is the process's, so a later receiver's prewarm of the same key has
 # nothing left to build
-_WARMED: set = set()
-_WARMED_LOCK = threading.Lock()
-
-
-def _warm_once(key, body) -> bool:
-    """Run ``body`` unless this process has run the prewarm ``key``;
-    return whether it ran."""
-    with _WARMED_LOCK:
-        if key in _WARMED:
-            return False
-    body()
-    with _WARMED_LOCK:
-        _WARMED.add(key)
-    return True
+_WARMED = cache.store()
 
 
 class _Prewarm(threading.Thread):
@@ -507,10 +495,12 @@ class Receiver:
             else:
                 searcher.detections_refined(searcher.power_grid(**kw), 1)
 
-        run = _warm_once(("search", str(self.device), engine, searcher.cfg,
-                          searcher.n_coherent, head_len, bits), search)
+        ran = []    # filled by the build: this call ran the prewarm
+        cache.once(_WARMED, ("search", str(self.device), engine, searcher.cfg,
+                             searcher.n_coherent, head_len, bits),
+                   lambda: ran.append(search()))
         dt = time.perf_counter() - t0
-        self.prewarm_stats.update(acq_prewarm_s=dt, acq_searched=run)
+        self.prewarm_stats.update(acq_prewarm_s=dt, acq_searched=bool(ran))
 
     @METRICS.stage("receiver.prewarm.seeder")
     def _prewarm_seeder(self, n_chan: int) -> None:
@@ -522,11 +512,12 @@ class Receiver:
         if self.device.type != "cuda":
             return
         t0 = time.perf_counter()
-        run = _warm_once(("seeder", str(self.device)), lambda: (
+        ran = []    # filled by the build: this call ran the prewarm
+        cache.once(_WARMED, ("seeder", str(self.device)), lambda: ran.append(
             tc.start_channels(tc.init_state(n_chan, self.device), [0],
                               [0.0], [0.0], [0.0])))
         dt = time.perf_counter() - t0
-        self.prewarm_stats.update(seeder_prewarm_s=dt, seeder_ran=run)
+        self.prewarm_stats.update(seeder_prewarm_s=dt, seeder_ran=bool(ran))
 
     @METRICS.stage("receiver.prewarm.track")
     def _prewarm_track(self, n_steps: int, n_chan: int,

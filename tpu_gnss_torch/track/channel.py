@@ -23,13 +23,12 @@ rounding cannot bias the code phase (tpu_gnss/track/channel.py:275-298).
 
 from __future__ import annotations
 
-import functools
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import cache, kernels
 from ..acquire.folded import fft_len_for_period
 from ..constants import CHIP_RATE_HZ, CODE_LEN_CHIPS, L1_HZ
 from ..device import resolve_device
@@ -509,7 +508,7 @@ def loop_update(taps: Optional[torch.Tensor], state: torch.Tensor,
     kernels.launched("loop_update")
 
 
-@functools.lru_cache(maxsize=8)
+@cache.built_once(bound=8)
 def _gather_tables(fs: float, e_sub: int, device: str) -> tuple:
     """The gather correlator's per-sample nominal chip index (reduced mod
     1023 in float64 before the float32 cast), sample index, and the wipe

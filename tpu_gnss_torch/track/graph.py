@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import kernels
+from .. import cache, kernels
 from ..device import resolve_device
 from ..utils.metrics import METRICS
 from .channel import (ChannelState, EpochOut, aid_tensor, init_state,
@@ -230,8 +230,7 @@ class GraphedTracker:
                          dict(tally))
 
 
-_SHARED: dict = {}
-_SHARED_LOCK = threading.Lock()
+_SHARED = cache.store()
 
 
 def shared_tracker(*, device, fs: float, pll_gains, dll_gains,
@@ -253,8 +252,4 @@ def shared_tracker(*, device, fs: float, pll_gains, dll_gains,
                               else tuple(float(a) for a in agc_thresholds)))
     key = (str(dev), loop_opts(**kw), kw["fs"], kw["pll_gains"],
            kw["dll_gains"])
-    with _SHARED_LOCK:
-        tracker = _SHARED.get(key)
-        if tracker is None:
-            tracker = _SHARED[key] = GraphedTracker(**kw, device=dev)
-        return tracker
+    return cache.once(_SHARED, key, lambda: GraphedTracker(**kw, device=dev))
